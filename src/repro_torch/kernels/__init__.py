@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels of the port, each beside its plain version.
+
+  knapsack_dp   - ``dp_stages`` (csrc/dp_stages.cu): Algorithm-1 stage
+                  tables of every (variant, cluster) plus the
+                  consulted-row gather; the ``knapsack_dp`` op.
+  lut_pipeline  - ``minplus_combine`` (csrc/minplus_combine.cu): the
+                  Algorithm-2 min-plus fold, final combine and split
+                  backtrace; the fused ``lut_build`` op.
+  build         - nvcc -> shared library -> ctypes loader.
+
+A wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors; it never falls back from one to the other.
+"""

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels: nvcc -> .so -> ctypes.
+
+Each source ``repro_torch/csrc/<name>.cu`` exposes a plain C entry
+point. It is compiled on first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v
+
+into ``build/kernels/<name>-<hash>.so`` at the repository root (a
+directory git ignores) and loaded with :mod:`ctypes`. The hash covers
+the source and the flags, so an edited source never loads a stale
+library. There is no fast math: the kernels are held bitwise against
+their plain versions. :func:`build` compiles several sources at once,
+one nvcc process each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("dp_stages", "minplus_combine")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
+                       "CUDA kernels are built on the machine with the card")
+
+
+def lib_path(name: str) -> Path:
+    """The content-addressed shared library of source ``name``."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
+    """Compile every missing library of ``names``, all nvcc processes
+    started together. Returns ``{name: {"seconds", "log", "cached"}}``
+    (``log`` holds nvcc's output, ``-Xptxas -v`` included); raises with
+    the compiler's output when a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: Dict[str, dict] = {}
+    running = {}
+    for name in names:
+        path = lib_path(name)
+        if path.exists():
+            out[name] = {"seconds": 0.0, "log": "", "cached": True}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, path, t0) in running.items():
+        log, _ = proc.communicate()
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                     "cached": False}
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)            # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    return lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a C entry point reports a CUDA error (its return is
+    ``cudaGetLastError()`` right after the launch)."""
+    if status != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {status}")

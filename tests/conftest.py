@@ -26,3 +26,9 @@ except ImportError:                      # pragma: no cover - optional dep
             return lambda *a, **k: _AnyStrategy()
 
     st = _AnyStrategy()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without "
+        "one (run them on the card: python -m pytest -m gpu)")

@@ -1,0 +1,81 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here is marked ``gpu`` and skips without a CUDA card (the
+check runs inside the test, so every worker collects the same tests).
+The file imports neither JAX nor the JAX package, so it runs on the
+machine with the card:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py -q
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
+from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
+from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
+from repro_torch.kernels.lut_pipeline.ref import lut_pipeline_ref  # noqa: E402
+
+SHAPES = [  # V, C, n, T, K, R
+    (1, 2, 2, 24, 4, 6),           # the edge/pool topology
+    (2, 3, 1, 30, 5, 7),           # cxl-tier-3-like, variant-batched
+    (3, 1, 2, 16, 3, 4),           # single cluster (no fold)
+    (2, 5, 1, 32, 6, 9),           # deep fold
+    (2, 2, 2, 3000, 256, 33),      # main-path K, many rows
+    (1, 1, 1, 500, 1100, 7),       # K wider than one block
+]
+
+
+def _problem(seed, V, C, n, T, K, R, dev):
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, max(2, T // 3), size=(V, C, n))
+    e = rng.integers(1, 40, size=(V, C, n)).astype(np.float32)
+    rows = rng.integers(0, T + 1, size=(V, R))
+    e[0, C - 1, n - 1], t[0, C - 1, n - 1] = np.inf, 1   # inert pad
+    return (torch.as_tensor(t, dtype=torch.int32, device=dev),
+            torch.as_tensor(e, dtype=torch.float32, device=dev),
+            torch.as_tensor(rows, dtype=torch.int32, device=dev))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,C,n,T,K,R", SHAPES)
+def test_cuda_kernels_match_plain_versions(V, C, n, T, K, R):
+    dev = _card()
+    t, e, rows = _problem(V * 7919 + C * 31 + n, V, C, n, T, K, R, dev)
+    n0, m0 = kops.dp_stages.launches, lops.minplus_combine.launches
+    stages, min_e, splits = lops.lut_build(t, e, T, K, rows, device=dev)
+    torch.cuda.synchronize()
+    assert (kops.dp_stages.launches, lops.minplus_combine.launches) == \
+        (n0 + 1, m0 + 1)
+    ref = lut_pipeline_ref(t, e, rows, T=T, K=K)
+    assert torch.equal(stages, ref[0])
+    assert torch.equal(min_e, ref[1])
+    assert torch.equal(splits, ref[2])
+    assert torch.equal(stages, dp_stages_ref(t, e, T, K))
+
+
+@pytest.mark.gpu
+def test_cuda_knapsack_dp_matches_plain_version():
+    dev = _card()
+    t_l, e_l, T, K = [18, 18], [3.25, 1.5], 2000, 256
+    ours = kops.knapsack_dp(t_l, e_l, T, K, device=dev, return_stages=True)
+    ref = kops.knapsack_dp(t_l, e_l, T, K, device="cpu", return_stages=True)
+    assert torch.equal(ours.cpu(), ref)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_instead_of_falling_back():
+    dev = _card()
+    t = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
+    e = torch.ones((1, 1, 1), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match=">= 1 tick"):
+        kops.dp_stages(t, e, 8, 2)
+    with pytest.raises(ValueError, match="share a device"):
+        kops.dp_stages(t.cpu() + 1, e, 8, 2)
