@@ -6,29 +6,49 @@
 Run from the root of a checkout, on a machine with one CUDA card (an
 H100; the kernels are built for sm_90a). Phases:
 
-  1. print the card's name and power limit; build both CUDA kernels from
-     ``src/repro_torch/csrc`` (nvcc, one process per source, in
+  1. print the card's name and power limit; build the three CUDA kernels
+     from ``src/repro_torch/csrc`` (nvcc, one process per source, in
      parallel), printing ``-Xptxas -v`` and the build times;
-  2. hold each kernel bitwise (``torch.equal``) against its plain
-     PyTorch version on the same inputs, at the main path's shapes: the
-     gpu-pool DVFS clock grid of internlm2_1_8b (V=6, C=2, n=2,
-     T=14376, K=256, R=33), the cxl-tier-3 grid (C=3), an edge C=1
+  2. hold the placement kernels bitwise (``torch.equal``) against their
+     plain PyTorch versions on the same inputs, at the main path's
+     shapes: the gpu-pool DVFS clock grid of internlm2_1_8b (V=6, C=2,
+     n=2, T=14376, K=256, R=33), the cxl-tier-3 grid (C=3), an edge C=1
      build, a synthetic C=5 build with inert padding, and
      ``knapsack_dp`` at gpu-pool's T=14376, K=256, t=[18, 18];
-  3. drive the main path with every launch count set to 0: all 18
+  3. drive the placement path with its launch counts set to 0: all 18
      golden LUT digests built with ``device="cuda"``, the per-point
      ``batched=False`` anchor against the fused build, then
      ``api.scheduler(..., solver="dp", dvfs=True, device="cuda")`` on
      gpu-pool and cxl-tier-3 through the six load scenarios (10 slices
      each), held equal to the same run with ``device="cpu"``; the counts
      are read right after and every kernel must have launched;
-  4. time each kernel and its plain version with CUDA events at the
-     gpu-pool grid shape, beside the bound (bytes written once over
-     3.35 TB/s, or operations over 67 TFLOP/s fp32, the larger), and
+  4. time each placement kernel and its plain version with CUDA events
+     at the gpu-pool grid shape, beside the bound (bytes written once
+     over 3.35 TB/s, or operations over 67 TFLOP/s fp32, the larger), and
      split one ``build_lut_grid`` into kernel, D2H copy and host
      finalize; torch.profiler adds the kernels' device-only times and
      the device's idle share over one ``build_lut_grid``;
-  5. print the ``{"kernels": [...]}`` line and, last, the
+  5. drive the serving path with ``pim_matmul.launches`` set to 0:
+     internlm2_1_8b at full width (``scan_layers=False``, random weights
+     from a seeded ``torch.Generator`` on the card) through
+     ``api.engine("gpu-pool", ..., device="cuda")``, 10 slices of
+     ``case6_random`` with ``tiered_forward`` on a (16, 2048) input after
+     each; every retier must tier 48 matrices, each int8 segment must
+     dequantize to within one step of its columns, and ``tiered_forward``
+     must equal the same segments composed on the CPU (int8 tiers
+     bitwise); then ``DecodeEngine`` serves 6 requests, and a 2-layer
+     fp32 model at the same widths holds one ``decode_step`` on cuda to
+     the same step on the CPU;
+  6. hold ``pim_mac`` bitwise against its plain version at the tier
+     widths phase 5 produced (M=16, K=2048), at M=1 and M=256 with
+     N=8192, at worst-case magnitudes, with scalar scales, in fp32 and
+     bf16; time it L2-cold beside its bound (bytes over 3.35 TB/s or
+     operations over 1,979 TOP/s int8), its plain version and
+     ``torch._int_mm`` plus the same epilogue (M=32), with its
+     device-only time from torch.profiler; split one ``run_slice`` into
+     scheduler step, retier, decode and ``tiered_forward``, and time one
+     full-width ``decode_step``;
+  7. print the ``{"kernels": [...]}`` line and, last, the
      ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line, as does a machine
@@ -52,6 +72,7 @@ ROOT = Path(__file__).resolve().parent
 # and fp32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12                 # dense int8 tensor cores
 
 # Golden digests of the JAX package's LUTs (tests/test_multipool.py),
 # built at n_points=6, k_groups=64 for every registered substrate.
@@ -77,6 +98,13 @@ GOLDEN_LUT_DIGESTS = {
 }
 
 SCENARIO_SLICES = 10
+SERVE_SLICES = 10
+# cuda against cpu on the 2-layer fp32 model: fp32 sums of up to 8192
+# terms taken in another order (logits are O(1))
+DECODE_ATOL = 1e-3
+# bf16 tiers of tiered_forward, cuda against cpu: one bf16 rounding of
+# the product taken in another order (outputs are O(1))
+BF16_TIER_ATOL = 6e-2
 
 
 def lut_digest(lut) -> str:
@@ -531,6 +559,366 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
     out["lut_grid_ms"] = dict(total=total_ms, **spans)
 
 
+# -- the serving slice -----------------------------------------------------
+
+def serve_config():
+    """internlm2_1_8b at full width, unscanned: ``_retier`` walks the
+    stack's entries and finds no FFN inside a "scan" group, as in the JAX
+    package (ROADMAP reference note (c))."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("internlm2_1_8b"),
+                               scan_layers=False)
+
+
+def tier_columns(segs: dict) -> dict:
+    """{tier: (first column, segment)} in split order."""
+    cols, off = {}, 0
+    for name, seg in segs.items():
+        if seg.get("empty"):
+            continue
+        n = seg["q"].shape[1] if "q" in seg else seg["w"].shape[1]
+        cols[name] = (off, seg)
+        off += n
+    return cols
+
+
+def check_tiering(eng, params) -> float:
+    """Every tiered matrix: int8 segments dequantize to within one step
+    of their fp32 columns, bf16 segments are the columns' bf16 cast.
+    Returns the largest error in quantization steps."""
+    import torch
+
+    from repro_torch.quant.int8 import dequantize
+    worst = 0.0
+    for (lname, wname), segs in eng._tiered.items():
+        w = params["stack"][lname]["ffn"][wname]
+        for name, (off, seg) in tier_columns(segs).items():
+            if "q" in seg:
+                n = seg["q"].shape[1]
+                err = (dequantize(seg["q"], seg["scale"])
+                       - w[:, off:off + n]).abs()
+                steps = float((err / seg["scale"][None, :]).max())
+                require(steps <= 1.0, f"{lname}/{wname}/{name}: int8 "
+                        f"segment off by {steps} steps")
+                worst = max(worst, steps)
+            else:
+                n = seg["w"].shape[1]
+                require(torch.equal(seg["w"],
+                                    w[:, off:off + n].to(torch.bfloat16)),
+                        f"{lname}/{wname}/{name}: bf16 segment differs")
+    return worst
+
+
+def check_tiered_forward(eng, x, y) -> dict:
+    """``y = eng.tiered_forward(x)`` on the card against the same
+    segments composed on the CPU: int8 tiers bitwise, bf16 tiers within
+    BF16_TIER_ATOL."""
+    import torch
+
+    from repro_torch.models.hetero_linear import tiered_matmul
+    segs = eng._tiered[next(iter(eng._tiered))]
+    cpu_segs = {k: {f: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                    for f, v in seg.items()} for k, seg in segs.items()}
+    y_cpu = tiered_matmul(x.cpu(), cpu_segs)
+    y = y.cpu()
+    widths = {}
+    for name, (off, seg) in tier_columns(segs).items():
+        n = seg["q"].shape[1] if "q" in seg else seg["w"].shape[1]
+        a, b = y[:, off:off + n], y_cpu[:, off:off + n]
+        if "q" in seg:
+            require(torch.equal(a, b), f"tiered_forward {name}: cuda != cpu")
+        else:
+            err = float((a - b).abs().max())
+            require(err <= BF16_TIER_ATOL,
+                    f"tiered_forward {name}: |cuda - cpu| = {err}")
+        widths[name] = n
+    return widths
+
+
+def phase_serving(cfg, out: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import workloads
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = lm.init_lm(gen, cfg)
+    x = torch.randn((16, cfg.d_model), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads}/{cfg.n_kv_heads} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} dtype={cfg.dtype}: {n_params} params "
+          f"initialised on cuda in {time.perf_counter() - t0:.2f} s")
+
+    pim_matmul.launches = 0
+    t0 = time.perf_counter()
+    eng = api.engine("gpu-pool", cfg, params, max_batch=16, device="cuda")
+    loads = workloads.SCENARIOS["case6_random"][:SERVE_SLICES]
+    widths, placements, worst = {}, [], 0.0
+    for i, n in enumerate(loads):
+        r = eng.run_slice(min(n, eng.max_batch))
+        if r.retiered:
+            require(len(eng._tiered) == 2 * cfg.n_layers,
+                    f"slice {i}: {len(eng._tiered)} matrices tiered")
+            worst = max(worst, check_tiering(eng, params))
+            placements.append(dict(r.report.placement))
+        y = eng.tiered_forward(x)
+        require(y.shape == (16, cfg.d_ff) and bool(torch.isfinite(y).all()),
+                f"slice {i}: tiered_forward {tuple(y.shape)}")
+        if r.retiered:
+            for name, w in check_tiered_forward(eng, x, y).items():
+                widths.setdefault(name, set()).add(w)
+        require(len(r.tokens) == min(r.report.n_done, eng.max_batch),
+                f"slice {i}: {len(r.tokens)} tokens")
+        used = {k: v for k, v in r.report.placement.items() if v}
+        print(f"[serve] slice {i} load {n}: E={r.report.energy_pj!r} pJ "
+              f"retier={'y' if r.retiered else 'n'} "
+              f"{'ok' if r.report.deadline_met else 'MISS'} {used} "
+              f"tokens={r.tokens.tolist()}")
+    torch.cuda.synchronize()
+    launches = pim_matmul.launches
+    elapsed = time.perf_counter() - t0
+    print(f"[serve] gpu-pool: {len(placements)} retiers x "
+          f"{2 * cfg.n_layers} matrices; int8 segments within {worst!r} "
+          f"steps; tiered_forward int8 tiers == cpu; tier widths "
+          f"{ {k: sorted(v) for k, v in widths.items()} }; pim_matmul "
+          f"launches during the serving path: {launches} ({elapsed:.2f} s)")
+    require(launches > 0, "pim_mac never launched on the serving path")
+    out["pim_launches"] = launches
+    out["int8_widths"] = sorted({w for k, v in widths.items()
+                                 if k.endswith("int8") for w in v})
+    out["engine"], out["x"], out["placements"] = eng, x, placements
+
+    # DecodeEngine: continuous batching on the same weights
+    t0 = time.perf_counter()
+    deng = DecodeEngine(cfg, params, max_batch=4, max_len=64, device="cuda")
+    for rid in range(6):
+        deng.submit(Request(rid=rid, prompt=[1 + rid, 2, 3],
+                            max_new_tokens=8))
+    done = deng.run_until_done()
+    torch.cuda.synchronize()
+    require(sorted(r.rid for r in done) == list(range(6))
+            and all(len(r.out) == 8 for r in done),
+            f"DecodeEngine: {[(r.rid, len(r.out)) for r in done]}")
+    steps = deng.step_times_s
+    print(f"[serve] DecodeEngine: 6/6 requests x 8 tokens in "
+          f"{len(steps)} steps, {time.perf_counter() - t0:.2f} s; median "
+          f"step {sorted(steps)[len(steps) // 2] * 1e3!r} ms; "
+          f"outputs {[r.out for r in sorted(done, key=lambda r: r.rid)]}")
+    del deng
+
+    # one decode_step of a 2-layer fp32 model at the same widths, cuda
+    # against cpu
+    small = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    p_gpu = lm.init_lm(torch.Generator(device="cuda").manual_seed(1), small)
+    p_cpu = _tree_to(p_gpu, "cpu")
+    toks = torch.tensor([5, 17, cfg.vocab_size - 1, 3], device="cuda")
+    pos = torch.tensor([0, 3, 7, 1], device="cuda")
+    logits = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        st = lm.init_decode_state(small, 4, 16, device=dev)
+        logits[dev], _ = lm.decode_step(p, small, st, toks.to(dev),
+                                        pos.to(dev))
+    err = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
+    print(f"[serve] 2-layer fp32 decode_step, cuda vs cpu: max |diff| "
+          f"{err!r} (atol {DECODE_ATOL}), max |logit| "
+          f"{float(logits['cpu'].abs().max())!r}")
+    require(err <= DECODE_ATOL, f"decode_step cuda vs cpu: {err}")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def pim_bound_ms(M: int, K: int, N: int, out_bytes: int) -> tuple:
+    nbytes = M * K + K * N + 4 * (M + N) + out_bytes * M * N
+    b, o = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / INT8_OPS_PER_S
+    return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
+
+
+def pim_inputs(gen, M: int, K: int, N: int, copies: int = 1, lo=-128):
+    """x, scales and ``copies`` weight matrices (enough to stream past
+    the 50 MB L2 between launches, as successive layers do)."""
+    import torch
+    x = torch.randint(lo, 128, (M, K), dtype=torch.int8, device="cuda",
+                      generator=gen)
+    ws = [torch.randint(lo, 128, (K, N), dtype=torch.int8, device="cuda",
+                        generator=gen) for _ in range(copies)]
+    sx = torch.rand(M, device="cuda", generator=gen) * 0.2 + 1e-3
+    sw = torch.rand(N, device="cuda", generator=gen) * 0.2 + 1e-3
+    return x, ws, sx, sw
+
+
+def cold_ms(fn, ws, reps: int) -> float:
+    """Mean device time of ``fn(w)`` cycling through ``ws`` (CUDA
+    events after one warm-up call)."""
+    calls = [0]
+
+    def step():
+        fn(ws[calls[0] % len(ws)])
+        calls[0] += 1
+    return cuda_ms(step, reps=reps, warmup=1)
+
+
+def phase_pim(out: dict) -> None:
+    import torch
+
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.kernels.pim_mac.ref import pim_matmul_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    K = 2048
+    shapes = [(16, K, n) for n in out["int8_widths"]] + [
+        (16, K, 8192), (1, K, 8192), (256, K, 8192)]
+    err = 0.0
+    for M, K_, N in shapes:
+        x, (w,), sx, sw = pim_inputs(gen, M, K_, N)
+        for od in (torch.float32, torch.bfloat16):
+            a = pim_matmul(x, w, sx, sw, out_dtype=od)
+            b = pim_matmul_ref(x, w, sx, sw, od)
+            torch.cuda.synchronize()
+            require(torch.equal(a, b), f"pim_mac {M}x{K_}x{N} {od} != plain")
+            err = max(err, max_abs_err(a, b))
+        print(f"[parity] pim_mac M={M} K={K_} N={N}: fp32 and bf16 equal")
+    # worst-case magnitudes: every product +-127^2 summed over K
+    x = torch.full((16, K), 127, dtype=torch.int8, device="cuda")
+    w = torch.full((K, 40), -127, dtype=torch.int8, device="cuda")
+    w[:, ::2] = 127
+    ones = torch.ones(16, device="cuda"), torch.ones(40, device="cuda")
+    a = pim_matmul(x, w, *ones)
+    expect = torch.tensor([127 * 127 * K, -127 * 127 * K] * 20,
+                          dtype=torch.float32, device="cuda").expand(16, 40)
+    require(torch.equal(a, expect) and torch.equal(
+        a, pim_matmul_ref(x, w, *ones)), "pim_mac worst case != exact")
+    # scalar scales
+    x, (w,), _, _ = pim_inputs(gen, 16, K, 1000)
+    for od in (torch.float32, torch.bfloat16):
+        a = pim_matmul(x, w, 0.0125, torch.tensor(0.5, device="cuda"),
+                       out_dtype=od)
+        require(torch.equal(a, pim_matmul_ref(x, w, 0.0125, 0.5, od)),
+                f"pim_mac scalar scales {od} != plain")
+    print(f"[parity] pim_mac worst case (+-127, K={K}) exact; scalar "
+          f"scales equal; max_abs_err {err!r}")
+    out["max_abs_err"]["pim_mac"] = err
+
+    # timings: L2-cold (weights cycle past the 50 MB L2), fp32 out
+    rows = {}
+    main_n = max(out["int8_widths"] or [8192])
+    for M, N in sorted({(16, n) for n in out["int8_widths"]}
+                       | {(16, 8192), (1, 8192), (256, 8192), (32, 8192)}):
+        # enough copies to stream past the 50 MB L2 (capped: a narrow
+        # tier's weights stay L2-resident, as its layers' would)
+        copies = min(64, max(2, -(-160 * 2 ** 20 // (K * N))))
+        x, ws, sx, sw = pim_inputs(gen, M, K, N, copies=copies)
+        ms = cold_ms(lambda w: pim_matmul(x, w, sx, sw), ws, reps=60)
+        plain_ms = cold_ms(lambda w: pim_matmul_ref(x, w, sx, sw), ws,
+                           reps=6)
+        lib_ms = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            lib_ms = cold_ms(lambda w: (torch._int_mm(x, w).float()
+                                        * sx[:, None] * sw[None, :]),
+                             ws, reps=60)
+        bound, by = pim_bound_ms(M, K, N, 4)
+        prof = profile_device(lambda: [pim_matmul(x, w, sx, sw)
+                                       for w in ws[:8]])
+        dev_ms = sum(v for n, v in prof["by_name"].items()
+                     if "pim_mac_kernel" in n) / min(8, len(ws))
+        rows[(M, N)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, library_ms=lib_ms)
+        print(f"[time] pim_mac M={M} K={K} N={N}: ms={ms!r} "
+              f"device_only_ms={dev_ms if prof['by_name'] else None!r} "
+              f"plain_ms={plain_ms!r} bound_ms={bound!r} ({by}) "
+              f"library_ms={lib_ms!r} (torch._int_mm + epilogue) "
+              f"bound_share={bound / ms!r} ({copies} weight copies, "
+              f"{copies * K * N / 2 ** 20:.1f} MiB cycled)")
+        del x, ws
+        torch.cuda.empty_cache()
+    out["pim_time"] = dict(rows[(16, main_n)],
+                           library_ms=rows[(32, 8192)]["library_ms"])
+    print(f"[time] pim_mac kernels-line shape M=16 K={K} N={main_n}; "
+          f"library_ms from M=32 N=8192 (torch._int_mm needs M > 16)")
+
+
+def phase_serve_timing(cfg, out: dict) -> None:
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.models import lm
+
+    eng, x = out["engine"], out["x"]
+    placements = out["placements"]
+    require(len({tuple(sorted(p.items())) for p in placements}) >= 2,
+            "the serving run saw fewer than two placements")
+    pa, pb = placements[-1], next(p for p in placements
+                                  if p != placements[-1])
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    obs.reset()
+    obs.enable()
+    parts = {}
+    for rep in range(3):
+        target = pb if rep % 2 == 0 else pa
+        parts.setdefault("sched_step", []).append(
+            synced(lambda: eng.sched.step(3))[1])
+        moved, ms = synced(lambda: eng.apply_placement(target))
+        require(moved, "apply_placement did not migrate")
+        parts.setdefault("retier", []).append(ms)
+        parts.setdefault("decode", []).append(
+            synced(lambda: eng.decode(16))[1])
+        parts.setdefault("tiered_forward", []).append(
+            synced(lambda: eng.tiered_forward(x))[1])
+    spans = {}
+    for ev in obs.tracer().events():
+        if ev.get("ph") == "X" and ev["name"].startswith("engine."):
+            spans.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+    obs.reset()
+    print(f"[time] run_slice split (gpu-pool, full width, host clock "
+          f"ending in a synchronize, 3 reps, ms): "
+          + " ".join(f"{k}={v!r}" for k, v in parts.items())
+          + f"; obs spans (host, no synchronize): {spans!r}")
+    total = [synced(lambda: eng.run_slice(3)) for _ in range(3)]
+    print("[time] run_slice(3) total ms: " + repr(
+        [(ms, "retier" if r.retiered else "no retier") for r, ms in total]))
+
+    st = lm.init_decode_state(cfg, 16, 128, device="cuda")
+    toks = torch.arange(16, device="cuda")
+    step_ms = cuda_ms(lambda: lm.decode_step(eng.params, cfg, st, toks, 5),
+                      reps=5)
+    print(f"[time] full-width decode_step B=16 (bf16, per-call weight "
+          f"cast): {step_ms!r} ms")
+    print_profile("full-width decode_step", profile_device(
+        lambda: lm.decode_step(eng.params, cfg, st, toks, 6)), ())
+
+
 def main() -> int:
     try:
         import torch
@@ -571,6 +959,10 @@ def main() -> int:
         phase_parity(cases, out)
         phase_main_path(cfg, out)
         phase_timing(grid, cxl, out)
+        scfg = serve_config()
+        phase_serving(scfg, out)
+        phase_pim(out)
+        phase_serve_timing(scfg, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -593,6 +985,13 @@ def main() -> int:
              launches=out["launches"]["minplus_combine"],
              max_abs_err=out["max_abs_err"]["minplus_combine"],
              library_ms=None, **main_t["minplus_combine"]),
+        dict(name="pim_mac", route="cuda",
+             source="src/repro_torch/csrc/pim_mac.cu",
+             replaces="src/repro/kernels/pim_mac/kernel.py:25 "
+                      "(_pim_mac_kernel)",
+             launches=out["pim_launches"],
+             max_abs_err=out["max_abs_err"]["pim_mac"],
+             **out["pim_time"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))

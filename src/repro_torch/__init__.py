@@ -1,4 +1,5 @@
-"""``repro_torch`` - the HH-PIM placement runtime on PyTorch and CUDA.
+"""``repro_torch`` - the HH-PIM placement and serving runtime on PyTorch
+and CUDA.
 
 The port of the JAX package ``repro`` (which stays the reference): the
 same module layout and names, plain functions on tensors with an

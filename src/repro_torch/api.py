@@ -14,10 +14,12 @@ and solvers are string-keyed registries (DESIGN.md SS.5):
     pc    = api.compiler()               # batched LUT build service
     pc.stats()                           # {"entries": 2, "builds": 2, ...}
 
-``lut``, ``scheduler`` and ``compiler`` run their device work on
-``device="cuda"`` unless the caller asks for ``device="cpu"``; a CUDA
-request without a card raises. The serve engine and the fleets of
-``repro.api`` are not ported yet.
+    eng   = api.engine("gpu-pool", cfg, params, max_batch=16)
+
+``lut``, ``scheduler``, ``compiler`` and ``engine`` run their device work
+on ``device="cuda"`` unless the caller asks for ``device="cpu"``; a CUDA
+request without a card raises. The fleets of ``repro.api`` are not
+ported yet.
 
 Adding a backend = one ``register_substrate`` entry; adding a placement
 strategy = one ``register_solver`` entry. The
@@ -46,7 +48,7 @@ from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
 
 __all__ = [
-    "substrate", "solver", "lut", "scheduler", "compiler", "obs",
+    "substrate", "solver", "lut", "scheduler", "compiler", "engine", "obs",
     "PlacementCompiler",
     "Substrate", "PlacementSolver", "SUBSTRATES", "SOLVERS",
     "register_substrate", "register_solver", "available_substrates",
@@ -155,3 +157,27 @@ def scheduler(sub: Union[str, Substrate], workload=None, *, solver=None,
         s, model, t_slice_ns=t_slice_ns, rho=rho, solver=sol, lut=lut,
         initial_placement=initial_placement, lut_points=lut_points,
         compiler=compiler, dvfs=dvfs)
+
+
+def engine(sub: Union[str, Substrate] = "tpu-pool", cfg=None, params=None,
+           *, t_slice_ms: Optional[float] = None, max_batch: int = 16,
+           seed: int = 0, lut_points: Optional[int] = None,
+           compiler: Optional[PlacementCompiler] = None,
+           device=DEFAULT_DEVICE, **over):
+    """Construct a functional serve engine (weights actually re-tiered per
+    placement) on a decode-capable pool substrate (tpu/gpu pools and the
+    cxl tiers; the substrate's ``tier_plan`` sets the column split).
+    ``params`` must live on ``device``, which runs the LUT builds, the
+    decode state and the tiering."""
+    from repro_torch.serve.hetero import HeteroServeEngine
+    resolve_device(device)
+    s = substrate(sub, **over)
+    if not s.supports_decode:
+        raise ValueError(
+            f"substrate {s.name!r} has no functional serve engine "
+            f"(accounting-only); use a substrate with supports_decode "
+            f"(tpu-pool / gpu-pool / cxl-tier families)")
+    return HeteroServeEngine(cfg, params, substrate=s,
+                             t_slice_ms=t_slice_ms, max_batch=max_batch,
+                             seed=seed, lut_points=lut_points,
+                             compiler=compiler, device=device)

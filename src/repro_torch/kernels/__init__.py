@@ -6,6 +6,10 @@
   lut_pipeline  - ``minplus_combine`` (csrc/minplus_combine.cu): the
                   Algorithm-2 min-plus fold, final combine and split
                   backtrace; the fused ``lut_build`` op.
+  pim_mac       - ``pim_matmul`` (csrc/pim_mac.cu): W8A8 matmul on the
+                  int8 tensor cores with an exact int32 accumulator and
+                  the dequantizing epilogue; the int8 tiers of
+                  ``models.hetero_linear.tiered_matmul``.
   build         - nvcc -> shared library -> ctypes loader.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain

@@ -1,0 +1,221 @@
+"""Grouped-query attention with RoPE variants and a KV cache - the dense
+family's full causal attention. Pure functions over explicit param dicts,
+in the JAX package's (B, S, H, hd) layout.
+
+The attention product is plain tensor code (no fused attention call), as
+the JAX package has no attention kernel. Local (windowed) attention, encoder
+attention and cross attention belong to families not ported yet and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.models.common import ModelConfig, apply_rope, dense_init
+
+KVCache = Dict[str, torch.Tensor]   # {"k": (B,S,KV,hd), "v": ...}
+
+NEG = -1e30
+
+
+def _require_full_attention(cfg: ModelConfig) -> None:
+    if cfg.attn_kind != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.attn_kind} (windowed) attention belongs to "
+            f"the hybrid family (recurrentgemma_2b), which is not ported "
+            f"yet")
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig
+                   ) -> Dict[str, torch.Tensor]:
+    hd, d = cfg.hd, cfg.d_model
+    p = {
+        "wq": dense_init(gen, (d, cfg.n_heads * hd)),
+        "wk": dense_init(gen, (d, cfg.n_kv_heads * hd)),
+        "wv": dense_init(gen, (d, cfg.n_kv_heads * hd)),
+        "wo": dense_init(gen, (cfg.n_heads * hd, d)),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((width * hd,), dtype=torch.float32,
+                                  device=gen.device)
+    return p
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_kind)
+    k = apply_rope(k, positions, cfg.rope_kind)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, cfg: ModelConfig):
+    """q: (B,Sq,H,hd); k,v: (B,Sk,KV,hd); GQA via head grouping. Logits
+    and softmax in fp32, the value product in v's dtype."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    q = q.reshape(B, Sq, KV, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
+    return out.reshape(B, Sq, H * hd)
+
+
+def _causal_mask(Sq: int, Sk: int, device=None) -> torch.Tensor:
+    """(1,1,1,Sq,Sk) boolean causal mask."""
+    qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    return (kpos <= qpos)[None, None, None]
+
+
+# sequences at or above this length take the O(S)-memory chunked path
+CHUNKED_ATTN_THRESHOLD = 1024
+Q_CHUNK = 512
+K_CHUNK = 512   # == Q_CHUNK so the causal diagonal is a single chunk pair
+
+
+def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
+                         k_chunk: int):
+    """Flash-style online-softmax causal attention, O(S) memory.
+
+    Loops over query chunks and, inside, key chunks with running (max,
+    denom, acc) carries in fp32. Handles GQA. The JAX package scans every
+    key chunk and masks the pairs above the diagonal with -1e30; those
+    pairs leave the carries unchanged bit for bit (their probabilities
+    are exp(-1e30 - m) = 0 and their correction exp(0) = 1), so they are
+    skipped here.
+    """
+    if q_chunk != k_chunk:
+        raise ValueError("the causal diagonal needs q_chunk == k_chunk")
+    c = q_chunk
+    B, Sq, H, hd = q.shape
+    if k.shape[1] != Sq:
+        raise ValueError("causal chunked attention needs Sq == Sk")
+    KV = k.shape[2]
+    g = H // KV
+    nq = Sq // c
+    dev = q.device
+    qc = q.reshape(B, nq, c, KV, g, hd).permute(1, 0, 3, 4, 2, 5).float()
+    kc = k.reshape(B, nq, c, KV, hd).permute(1, 0, 3, 2, 4).float()
+    vc = v.reshape(B, nq, c, KV, hd).permute(1, 0, 3, 2, 4).float()
+    scale = 1.0 / math.sqrt(hd)
+    # the diagonal pair's additive triangular mask
+    ar = torch.arange(c, device=dev)
+    tri = torch.where(ar[None, :] <= ar[:, None], 0.0, NEG).float()
+    outs = []
+    for iq in range(nq):
+        qi = qc[iq]                                   # (B,KV,g,c,hd)
+        m = torch.full((B, KV, g, c), NEG, dtype=torch.float32, device=dev)
+        denom = torch.zeros((B, KV, g, c), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KV, g, c, hd), dtype=torch.float32,
+                          device=dev)
+        for jk in range(iq + 1):
+            s = torch.einsum("bkgqh,bksh->bkgqs", qi, kc[jk]) * scale
+            if jk == iq:
+                s = s + tri
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            denom = denom * corr + p_.sum(dim=-1)
+            acc = (acc * corr[..., None]
+                   + torch.einsum("bkgqs,bksh->bkgqh", p_, vc[jk]))
+            m = m_new
+        outs.append(acc / denom.clamp_min(1e-30)[..., None])
+    # (nq, B, KV, g, c, hd) -> (B, Sq, H*hd)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, H * hd)
+    return out.to(q.dtype)
+
+
+def attention(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Full-sequence (training / prefill) causal self attention; long
+    sequences take the O(S)-memory chunked path."""
+    _require_full_attention(cfg)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    S = x.shape[1]
+    if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0 \
+            and S % K_CHUNK == 0:
+        out = _chunked_causal_sdpa(q, k, v, cfg, Q_CHUNK, K_CHUNK)
+    else:
+        out = _sdpa(q, k, v, _causal_mask(S, S, device=x.device), cfg)
+    return out @ p["wo"].to(x.dtype)
+
+
+def encoder_attention(p, x, cfg: ModelConfig, positions):
+    raise NotImplementedError(
+        "encoder attention belongs to the encoder-decoder family "
+        "(seamless_m4t_medium), which is not ported yet")
+
+
+def cross_attention(p, x, enc_out, cfg: ModelConfig):
+    raise NotImplementedError(
+        "cross attention belongs to the encoder-decoder family "
+        "(seamless_m4t_medium), which is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# decode path (KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device=None) -> KVCache:
+    _require_full_attention(cfg)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
+                     pos) -> Tuple[torch.Tensor, KVCache]:
+    """One-token decode. x: (B,1,d); pos: () or (B,) integer absolute
+    position(s) - a vector gives every batch row its own position (slot
+    continuous batching, where requests start at different times).
+
+    Full attention appends at ``pos``. The cache is written IN PLACE
+    (``index_copy_`` / ``index_put_``) where the JAX package selects a
+    new cache with ``where``: the values are the same, and the returned
+    cache holds the same tensors as ``cache``.
+    """
+    _require_full_attention(cfg)
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device).long()
+    per_row = pos.ndim == 1
+    positions = pos[:, None] if per_row else pos.expand(B, 1)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    C = cache["k"].shape[1]
+    slot = pos % C
+    if per_row:
+        rows = torch.arange(B, device=x.device)
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    else:
+        cache["k"].index_copy_(1, slot.view(1), k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot.view(1), v.to(cache["v"].dtype))
+    # valid = entries written so far
+    idx = torch.arange(C, device=x.device)
+    if per_row:
+        mask = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
+    else:
+        mask = (idx <= pos)[None, None, None, None, :]
+    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
+    out = out @ p["wo"].to(x.dtype)
+    return out, {"k": cache["k"], "v": cache["v"]}

@@ -1,12 +1,14 @@
-"""Model configuration for the architecture zoo.
+"""Model configuration and shared building blocks for the architecture zoo.
 
-Only :class:`ModelConfig` and :func:`reduced` are ported so far: the
-serving substrates resolve their default workload through them. The
-model building blocks of ``repro.models`` come with the serving slice.
+The numerics helpers (``rms_norm``, RoPE, ``dense_init``) serve the
+dense family of :mod:`repro_torch.models.lm`. The JAX package's sharding
+hints (``replicate_for_gather``, ``shard_activations``) are no-ops on one
+card and wait for the parallel slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -105,3 +107,55 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     )
     base.update(overrides)
     return dataclasses.replace(cfg, **base)
+
+
+# ---------------------------------------------------------------------------
+# numerics helpers
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def _rope_freqs(hd: int, theta: float = 10000.0,
+                device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               kind: str = "full") -> torch.Tensor:
+    """Rotary embedding. x: (B, S, H, hd); positions: (B, S).
+
+    kind="full": rotate all hd dims; kind="2d": ChatGLM-style - rotate only
+    the first half of head_dim (two-dimensional RoPE), pass the rest through.
+    """
+    if kind == "none":
+        return x
+    hd = x.shape[-1]
+    rot = hd if kind == "full" else hd // 2
+    freqs = _rope_freqs(rot, device=x.device)              # (rot/2,)
+    ang = positions[..., None].float() * freqs             # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., ::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
+    return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0
+               ) -> torch.Tensor:
+    """Normal(0, 1/fan_in) fp32 weights on ``gen``'s device. Torch's and
+    JAX's generators give different numbers from one seed: tests carry
+    JAX's init across with ``lm.params_from_numpy``."""
+    fan_in = shape[in_axis]
+    return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                        device=gen.device) / math.sqrt(fan_in))

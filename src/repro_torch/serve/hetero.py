@@ -9,16 +9,29 @@ clock/energy) and whose memory kinds are weight-residency formats - bf16
 ("MRAM": 1 byte/use plus dequant, pool may sleep when idle). Eq. (1) is
 isomorphic; only (t_i, e_i) change. See DESIGN.md SS.3.
 
-Only the numpy arch builders are ported so far; the functional
-``HeteroServeEngine`` of ``repro.serve.hetero`` comes with the serving
-slice.
+``HeteroServeEngine`` actually re-tiers the model weights every time slice
+(real re-quantization + column splits via models.hetero_linear, on the
+engine's device) and decodes, so placement changes are functionally
+exercised, while energy and latency are accounted by the core model. On
+the card the int8 tiers run the ``pim_mac`` CUDA kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
+from repro_torch import obs
 from repro_torch.core import spaces as sp
+from repro_torch.core.scheduler import SliceReport, TimeSliceScheduler
+from repro_torch.device import DEFAULT_DEVICE
+from repro_torch.device import resolve as resolve_device
+from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.hetero_linear import (fractions_to_counts,
+                                              split_weight, tiered_matmul)
 
 # -- TPU v5e-class constants (per chip; estimates, documented) --------------
 PEAK_FLOPS = 197e12          # bf16
@@ -99,3 +112,176 @@ def tpu_model_spec(cfg: ModelConfig, tokens_per_task: int) -> sp.ModelSpec:
     n_params += cfg.n_layers * 4 * cfg.d_model * cfg.d_model
     macs = n_params * tokens_per_task
     return sp.ModelSpec(f"{cfg.name}_serve", n_params, macs, 1.0)
+
+
+@dataclasses.dataclass
+class HeteroSliceResult:
+    report: SliceReport
+    tokens: np.ndarray           # decoded token ids (n_requests,)
+    retiered: bool
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+class HeteroServeEngine:
+    """Time-sliced decode engine with placement-driven weight tiering.
+
+    Canonically constructed through ``repro_torch.api.engine(...)``; a
+    direct call without ``substrate`` runs on the default ``tpu-pool``.
+
+    ``device`` runs the scheduler's LUT builds, the decode state and the
+    tiering; ``params`` must already live there. ``seed`` is accepted
+    for the JAX package's signature and, as there, never read.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *,
+                 t_slice_ms: Optional[float] = None,
+                 max_batch: int = 16, seed: int = 0,
+                 substrate=None, lut_points: Optional[int] = None,
+                 compiler=None, device=DEFAULT_DEVICE):
+        from repro_torch.core.solvers import make_solver
+        from repro_torch.core.substrate import make_substrate
+        dev = resolve_device(device)
+        if substrate is None:
+            substrate = make_substrate("tpu-pool")
+        if cfg is None:
+            from repro_torch.configs import get_smoke_config
+            cfg = get_smoke_config("internlm2_1_8b")
+        bad = {str(t.device) for t in _leaves(params)
+               if t.device.type != dev.type}
+        if bad:
+            raise ValueError(f"params live on {sorted(bad)}, the engine "
+                             f"runs on {dev}; move them first")
+        self.cfg = cfg
+        self.params = params
+        self.device = dev
+        self.substrate = substrate
+        self.arch = substrate.arch
+        self.model_spec = substrate.model_spec(cfg)
+        if t_slice_ms is None:
+            t_slice_ms = substrate.default_t_slice_ns(self.model_spec) / 1e6
+        self.t_slice_ms = t_slice_ms
+        # a shared PlacementCompiler (api.fleet passes one) makes this
+        # engine's LUT builds - including straggler rebuilds - hit the
+        # fleet-wide cache
+        self.sched = TimeSliceScheduler.from_substrate(
+            substrate, self.model_spec, t_slice_ns=t_slice_ms * 1e6,
+            lut_points=32 if lut_points is None else lut_points,
+            solver=make_solver(substrate.solver, device=dev),
+            compiler=compiler)
+        self.max_batch = max_batch
+        # substrate-declared (space, tier, format) split order: the cxl
+        # substrates re-tier int8/int8 pairs, cxl-tier-3 a 3-way int8
+        # split; tpu/gpu pools keep the legacy bf16/int8 mapping
+        plan = getattr(substrate, "tier_plan", None)
+        self._tier_plan = tuple(plan()) if plan else _DEFAULT_TIER_PLAN
+        self._tiered: Optional[Dict] = None
+        self._tiered_placement: Optional[Dict[str, int]] = None
+        self._toks = torch.zeros((max_batch,), dtype=torch.long, device=dev)
+        self._state = lm.init_decode_state(cfg, max_batch, 128, device=dev)
+        self._pos = 0
+        self.history: List[HeteroSliceResult] = []
+
+    # -- weight tiering ----------------------------------------------------
+    def _retier(self, placement: Dict[str, int]) -> bool:
+        if placement == self._tiered_placement:
+            return False
+        _obs = obs.enabled()
+        _t0 = obs.now_ns() if _obs else 0
+        K = self.model_spec.n_params
+        space_to_tier = {s: t for s, t, _ in self._tier_plan}
+        formats = {t: f for _, t, f in self._tier_plan}
+        order = tuple(t for _, t, _ in self._tier_plan)
+        tiers = {}
+        # walks the stack's entries as the JAX package does: a "scan"
+        # group holds its blocks one level down, so a scanned stack tiers
+        # no matrix there either (ROADMAP reference note (c))
+        stack = self.params["stack"]
+        for lname, layer in stack.items():
+            ffn = layer.get("ffn") if isinstance(layer, dict) else None
+            if not ffn:
+                continue
+            for wname in ("w_up", "w_gate"):
+                if wname not in ffn:
+                    continue
+                w = ffn[wname]
+                counts = fractions_to_counts(
+                    w.shape[-1],
+                    {space_to_tier[k]: v for k, v in placement.items()},
+                    K, order=order)
+                tiers[(lname, wname)] = split_weight(
+                    w.float(), {t: counts.get(t, 0) for t in order},
+                    formats=formats)
+        self._tiered = tiers
+        self._tiered_placement = dict(placement)
+        if _obs:
+            # a migration = weights actually re-quantized and re-split
+            obs.complete("engine.migration", _t0, cat="engine",
+                         args={"placement": dict(placement),
+                               "n_weights": len(tiers)})
+            obs.counter("engine.migrations")
+        return True
+
+    def apply_placement(self, placement: Dict[str, int]) -> bool:
+        """Re-tier the model weights to ``placement`` (no-op if unchanged).
+        Returns True when a migration actually happened. Fleet routers call
+        this with the placement chosen by an externally-driven scheduler."""
+        return self._retier(placement)
+
+    def decode(self, n_requests: int) -> np.ndarray:
+        """Decode one token for ``n_requests`` active requests (public fleet
+        entry point; capped at ``max_batch``)."""
+        if n_requests <= 0:
+            return np.zeros((0,), np.int32)
+        return self._decode_tokens(min(n_requests, self.max_batch))
+
+    def _decode_tokens(self, n_requests: int) -> np.ndarray:
+        """Decode one token per active request. As in the JAX package,
+        the step runs on the untiered params (ROADMAP reference note
+        (b)); ``tiered_forward`` runs the tiered weights."""
+        _obs = obs.enabled()
+        _t0 = obs.now_ns() if _obs else 0
+        logits, self._state = lm.decode_step(
+            self.params, self.cfg, self._state, self._toks, self._pos)
+        self._toks = torch.argmax(logits, dim=-1)
+        toks = self._toks[:n_requests].cpu().numpy().astype(np.int32)
+        if _obs:
+            obs.complete("engine.decode", _t0, cat="engine",
+                         args={"n_requests": n_requests})
+        self._pos += 1
+        return toks
+
+    def run_slice(self, n_requests: int) -> HeteroSliceResult:
+        """One time slice: schedule ``n_requests`` tasks, re-tier the
+        weights to the chosen placement and decode one token each."""
+        n_tasks = int(np.ceil(n_requests))
+        report = self.sched.step(n_tasks)
+        retiered = self._retier(report.placement)
+        toks = self._decode_tokens(min(report.n_done, self.max_batch)) \
+            if report.n_done else np.zeros((0,), np.int32)
+        res = HeteroSliceResult(report, toks, retiered)
+        self.history.append(res)
+        return res
+
+    def tiered_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Run one tiered FFN matmul (placement-split) - the path through
+        the int8 tiers' ``pim_mac`` kernel; tests use it to check the
+        placement invariance of the math."""
+        if not self._tiered:
+            raise RuntimeError("no tiered weights: run_slice first (a "
+                               "scanned stack tiers none)")
+        key = next(iter(self._tiered))
+        return tiered_matmul(x, self._tiered[key])
+
+    # -- summaries ----------------------------------------------------------
+    def energy_uj(self) -> float:
+        return sum(r.report.energy_pj for r in self.history) * 1e-6
+
+    def deadline_misses(self) -> int:
+        return sum(not r.report.deadline_met for r in self.history)

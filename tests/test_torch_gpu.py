@@ -16,6 +16,8 @@ from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
 from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
 from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
 from repro_torch.kernels.lut_pipeline.ref import lut_pipeline_ref  # noqa: E402
+from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
+from repro_torch.kernels.pim_mac.ref import pim_matmul_ref  # noqa: E402
 
 SHAPES = [  # V, C, n, T, K, R
     (1, 2, 2, 24, 4, 6),           # the edge/pool topology
@@ -79,3 +81,72 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
         kops.dp_stages(t, e, 8, 2)
     with pytest.raises(ValueError, match="share a device"):
         kops.dp_stages(t.cpu() + 1, e, 8, 2)
+
+
+# M, K, N: decode with ragged tier widths, one token, a prefill-sized M,
+# and the ragged shapes of tests/test_kernels.py
+PIM_SHAPES = [
+    (16, 2048, 928), (16, 2048, 7264), (1, 2048, 8192), (256, 2048, 8192),
+    (16, 64, 14), (16, 64, 114), (37, 129, 255), (100, 70, 50), (8, 8, 8),
+]
+
+
+def _pim_case(seed, M, K, N, dev, lo=-128):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randint(lo, 128, (M, K), dtype=torch.int8, generator=g)
+    w = torch.randint(lo, 128, (K, N), dtype=torch.int8, generator=g)
+    sx = torch.rand(M, generator=g) * 0.2 + 1e-3
+    sw = torch.rand(N, generator=g) * 0.2 + 1e-3
+    return [t.to(dev) for t in (x, w, sx, sw)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", PIM_SHAPES)
+def test_cuda_pim_mac_matches_plain_version(M, K, N, out_dtype):
+    dev = _card()
+    x, w, sx, sw = _pim_case(M * 7 + K * 3 + N, M, K, N, dev)
+    n0 = pops.pim_matmul.launches
+    out = pops.pim_matmul(x, w, sx, sw, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert pops.pim_matmul.launches == n0 + 1
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, pim_matmul_ref(x, w, sx, sw, out_dtype))
+
+
+@pytest.mark.gpu
+def test_cuda_pim_mac_ragged_n_sweep_and_scalar_scales():
+    dev = _card()
+    for N in list(range(1, 70)) + [127, 129, 191, 193, 1000]:
+        x, w, sx, sw = _pim_case(N, 16, 96, N, dev)
+        out = pops.pim_matmul(x, w, sx, sw)
+        assert torch.equal(out, pim_matmul_ref(x, w, sx, sw)), N
+    out = pops.pim_matmul(x, w, 0.03, torch.tensor(0.5, device=dev))
+    assert torch.equal(out, pim_matmul_ref(x, w, 0.03, 0.5))
+
+
+@pytest.mark.gpu
+def test_cuda_pim_mac_worst_case_int32_accumulation():
+    dev = _card()
+    K = 2048
+    x = torch.full((16, K), 127, dtype=torch.int8, device=dev)
+    w = torch.full((K, 40), -127, dtype=torch.int8, device=dev)
+    w[:, ::2] = 127
+    one = torch.ones(16, device=dev), torch.ones(40, device=dev)
+    out = pops.pim_matmul(x, w, *one)
+    expect = torch.tensor([127 * 127 * K, -127 * 127 * K] * 20,
+                          dtype=torch.float32, device=dev)
+    assert torch.equal(out, expect.expand(16, 40))
+    assert torch.equal(out, pim_matmul_ref(x, w, *one))
+
+
+@pytest.mark.gpu
+def test_cuda_pim_mac_raises_instead_of_falling_back():
+    dev = _card()
+    x, w, sx, sw = _pim_case(1, 4, 32, 8, dev)
+    with pytest.raises(TypeError, match="int8"):
+        pops.pim_matmul(x.float(), w, sx, sw)
+    with pytest.raises(ValueError, match="contiguous"):
+        pops.pim_matmul(x, w.t().contiguous().t(), sx, sw)
+    with pytest.raises(ValueError, match="w_i8 on cpu"):
+        pops.pim_matmul(x, w.cpu(), sx, sw)

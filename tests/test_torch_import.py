@@ -25,7 +25,11 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.lut_pipeline.ops" in mods
+    for m in ("repro_torch.kernels.lut_pipeline.ops",
+              "repro_torch.kernels.pim_mac.ops", "repro_torch.quant.int8",
+              "repro_torch.models.lm", "repro_torch.models.hetero_linear",
+              "repro_torch.serve.engine", "repro_torch.launch.serve"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -56,8 +60,13 @@ def test_device_entry_points_default_to_cuda_and_raise_without_a_card():
     from repro_torch import api
     from repro_torch.core import spaces as sp
     from repro_torch.core.placement import build_lut, build_lut_grid
+    from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.knapsack_dp.ops import knapsack_dp
     from repro_torch.kernels.lut_pipeline.ops import lut_build
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import DecodeEngine
+    from repro_torch.serve.hetero import HeteroServeEngine
 
     sub = api.substrate("edge-hhpim")
     T = sub.default_t_slice_ns()
@@ -73,6 +82,16 @@ def test_device_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: lut_build(np.ones((1, 1, 1)), np.ones((1, 1, 1)), 4, 2,
                           np.zeros(1)),
         lambda: knapsack_dp([1], [1.0], 4, 2),
+    ]
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    calls += [
+        lambda: api.engine("gpu-pool", cfg, params),
+        lambda: HeteroServeEngine(cfg, params),
+        lambda: DecodeEngine(cfg, params),
+        lambda: lm.init_decode_state(cfg, 1, 8),
+        lambda: lm.params_from_numpy({}),
+        lambda: serve.main(["--engine", "batch"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA card"):
