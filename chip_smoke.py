@@ -26,8 +26,9 @@ H100; the kernels are built for sm_90a). Phases:
      at the gpu-pool grid shape, beside the bound (bytes written once
      over 3.35 TB/s, or operations over 67 TFLOP/s fp32, the larger), and
      split one ``build_lut_grid`` into kernel, D2H copy and host
-     finalize; torch.profiler adds the kernels' device-only times and
-     the device's idle share over one ``build_lut_grid``;
+     finalize; torch.profiler adds each op's device-only time (the sum
+     of every CUDA kernel the op launches, all named with the op's name)
+     and the device's idle share over one ``build_lut_grid``;
   5. drive the serving path with ``pim_matmul.launches`` set to 0:
      internlm2_1_8b at full width (``scan_layers=False``, random weights
      from a seeded ``torch.Generator`` on the card) through
@@ -40,16 +41,19 @@ H100; the kernels are built for sm_90a). Phases:
      fp32 model at the same widths holds one ``decode_step`` on cuda to
      the same step on the CPU;
   6. hold ``pim_mac`` bitwise against its plain version at the tier
-     widths phase 5 produced (M=16, K=2048), at M=1 and M=256 with
+     widths phase 5 produced (M=16, K=2048), at M=1, 32 and 256 with
      N=8192, at worst-case magnitudes, with scalar scales, in fp32 and
      bf16; time it L2-cold beside its bound (bytes over 3.35 TB/s or
-     operations over 1,979 TOP/s int8), its plain version and
-     ``torch._int_mm`` plus the same epilogue (M=32), with its
-     device-only time from torch.profiler; split one ``run_slice`` into
-     scheduler step, retier, decode and ``tiered_forward``, and time one
-     full-width ``decode_step``;
-  7. print the ``{"kernels": [...]}`` line and, last, the
-     ``{"ok": true, "device": {...}}`` line.
+     operations over 1,979 TOP/s int8) and its plain version, by CUDA
+     events and by torch.profiler's device-only time, and at M=32 (the
+     smallest M ``torch._int_mm`` takes) beside ``torch._int_mm`` plus
+     the same epilogue, timed the same two ways; split one
+     ``run_slice`` into scheduler step, retier, decode and
+     ``tiered_forward``, and time one full-width ``decode_step``;
+  7. print the ``{"kernels": [...]}`` line (each kernel's CUDA-event
+     ``ms`` and profiler ``device_ms``; ``pim_mac`` also its comparison
+     with the library call at M=32 under ``at_library_shape``) and, last,
+     the ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line, as does a machine
 without a CUDA card or a directory without the repository's ``src/``.
@@ -184,18 +188,28 @@ def profile_device(fn) -> dict:
     return dict(by_name=by_name, busy_ms=busy_us / 1e3, wall_ms=wall_ms)
 
 
-def print_profile(label: str, prof: dict, kernels) -> None:
+def op_ms(prof: dict, op: str):
+    """Device time of every CUDA kernel an op launches: the port names
+    each of an op's kernels with the op's name as prefix (``dp_stages``
+    runs a base fill, one chain kernel per stage and a gather). None
+    when nothing was traced."""
+    if not prof["by_name"]:
+        return None
+    return sum(v for n, v in prof["by_name"].items() if op in n)
+
+
+def print_profile(label: str, prof: dict, ops) -> dict:
+    """Print and return the ops' device-only ms over the profiled call."""
     if not prof["by_name"]:
         print(f"[profile] {label}: not measured (no CUDA activity traced)")
-        return
-    parts = []
-    for k in kernels:
-        ms = sum(v for n, v in prof["by_name"].items() if k in n)
-        parts.append(f"{k}_ms={ms!r}")
+        return {k: None for k in ops}
+    found = {k: op_ms(prof, k) for k in ops}
+    parts = [f"{k}_ms={ms!r}" for k, ms in found.items()]
     copy_ms = sum(v for n, v in prof["by_name"].items() if "Memcpy" in n)
     print(f"[profile] {label}: {' '.join(parts)} memcpy_ms={copy_ms!r} "
           f"device_busy_ms={prof['busy_ms']!r} wall_ms={prof['wall_ms']!r} "
           f"idle_share={1 - prof['busy_ms'] / prof['wall_ms']!r}")
+    return found
 
 
 # -- problems at the main path's shapes ------------------------------------
@@ -288,7 +302,9 @@ def phase_build(out: dict) -> None:
         print(f"[build] {name}: {rec['seconds']:.2f} s"
               f"{' (cached)' if rec['cached'] else ''}")
         for line in rec["log"].splitlines():
-            if "ptxas" in line or "error" in line.lower():
+            # ptxas -v: registers, shared memory, and (unprefixed) spills
+            if ("ptxas" in line or "spill" in line
+                    or "error" in line.lower()):
                 print(f"[build]   {line.strip()}")
     out["build"] = info
 
@@ -495,9 +511,12 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
     k_plain_ms = cuda_ms(lambda: dp_stages_ref(t1, e1, T, K), reps=2)
     k_bound, k_by = dp_stages_bound_ms(t1.cpu().numpy(), e1.cpu().numpy(),
                                        torch.zeros((1, 0)).numpy(), T, K)
+    k_dev = op_ms(profile_device(lambda: knapsack_dp(
+        t_l, e_l, T, K, device="cuda", return_stages=True)), "dp_stages")
     print(f"[time] knapsack_dp dp_stages: ms={k_ms!r} "
-          f"plain_ms={k_plain_ms!r} bound_ms={k_bound!r} ({k_by}) shape "
-          f"V=1 C=1 n=2 T={T} K={K} t={t_l}")
+          f"device_only_ms={k_dev!r} plain_ms={k_plain_ms!r} "
+          f"bound_ms={k_bound!r} ({k_by}) shape V=1 C=1 n=2 T={T} K={K} "
+          f"t={t_l}")
 
     timings = {}
     for label, c in (("gpu-pool grid", grid), ("cxl-tier-3 grid", cxl)):
@@ -528,9 +547,11 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
                   f"n={t.shape[2]} T={T} K={K} R={R}")
         # kernel-only device times (the event loop above also holds the
         # wrappers' host work, which dominates a microsecond kernel)
-        print_profile(f"{label} lut_build", profile_device(
+        dev = print_profile(f"{label} lut_build", profile_device(
             lambda: minplus_combine(dp_stages(t, e, T, K, rows)[1])),
-            ("dp_stages_kernel", "minplus_combine_kernel"))
+            ("dp_stages", "minplus_combine"))
+        for k, rec in timings[label].items():
+            rec["device_ms"] = dev[k]
         del g
         torch.cuda.empty_cache()
 
@@ -554,7 +575,7 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
           f"finalize_ms={spans.get('finalize')!r}")
     print_profile("build_lut_grid gpu-pool", profile_device(
         lambda: build_lut_grid(grid["ems"], **kw)),
-        ("dp_stages_kernel", "minplus_combine_kernel"))
+        ("dp_stages", "minplus_combine"))
     out["timings"] = timings
     out["lut_grid_ms"] = dict(total=total_ms, **spans)
 
@@ -786,13 +807,14 @@ def cold_ms(fn, ws, reps: int) -> float:
 def phase_pim(out: dict) -> None:
     import torch
 
-    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.kernels.pim_mac.ops import pim_matmul, split_plan
     from repro_torch.kernels.pim_mac.ref import pim_matmul_ref
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(12)
     K = 2048
     shapes = [(16, K, n) for n in out["int8_widths"]] + [
-        (16, K, 8192), (1, K, 8192), (256, K, 8192)]
+        (16, K, 8192), (1, K, 8192), (32, K, 8192), (256, K, 8192)]
     err = 0.0
     for M, K_, N in shapes:
         x, (w,), sx, sw = pim_inputs(gen, M, K_, N)
@@ -836,30 +858,45 @@ def phase_pim(out: dict) -> None:
         ms = cold_ms(lambda w: pim_matmul(x, w, sx, sw), ws, reps=60)
         plain_ms = cold_ms(lambda w: pim_matmul_ref(x, w, sx, sw), ws,
                            reps=6)
-        lib_ms = None
+        def device_ms(fn, op):
+            """Device-only ms per call of ``fn`` over 8 weight copies."""
+            total = op_ms(profile_device(lambda: [fn(w) for w in ws[:8]]),
+                          op)
+            return None if total is None else total / min(8, len(ws))
+
+        lib_ms = lib_dev = None
         if M > 16 and K % 8 == 0 and N % 8 == 0:
-            lib_ms = cold_ms(lambda w: (torch._int_mm(x, w).float()
-                                        * sx[:, None] * sw[None, :]),
-                             ws, reps=60)
+            def library(w):
+                return (torch._int_mm(x, w).float() * sx[:, None]
+                        * sw[None, :])
+            lib_ms = cold_ms(library, ws, reps=60)
+            lib_dev = device_ms(library, "")      # all of its kernels
         bound, by = pim_bound_ms(M, K, N, 4)
-        prof = profile_device(lambda: [pim_matmul(x, w, sx, sw)
-                                       for w in ws[:8]])
-        dev_ms = sum(v for n, v in prof["by_name"].items()
-                     if "pim_mac_kernel" in n) / min(8, len(ws))
-        rows[(M, N)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                            bound_by=by, library_ms=lib_ms)
+        dev_ms = device_ms(lambda w: pim_matmul(x, w, sx, sw), "pim_mac")
+        rows[(M, N)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                            bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                            library_device_ms=lib_dev)
+        plan = split_plan(M, K, N, sms)
         print(f"[time] pim_mac M={M} K={K} N={N}: ms={ms!r} "
-              f"device_only_ms={dev_ms if prof['by_name'] else None!r} "
-              f"plain_ms={plain_ms!r} bound_ms={bound!r} ({by}) "
-              f"library_ms={lib_ms!r} (torch._int_mm + epilogue) "
-              f"bound_share={bound / ms!r} ({copies} weight copies, "
+              f"device_only_ms={dev_ms!r} plain_ms={plain_ms!r} "
+              f"bound_ms={bound!r} ({by}) library_ms={lib_ms!r} "
+              f"library_device_only_ms={lib_dev!r} (torch._int_mm + "
+              f"epilogue) device_bound_share="
+              f"{bound / dev_ms if dev_ms else None!r} splits={plan.splits}"
+              f" blocks={plan.blocks} ({copies} weight copies, "
               f"{copies * K * N / 2 ** 20:.1f} MiB cycled)")
         del x, ws
         torch.cuda.empty_cache()
-    out["pim_time"] = dict(rows[(16, main_n)],
-                           library_ms=rows[(32, 8192)]["library_ms"])
+    lib = rows[(32, 8192)]
+    # the kernels line: the main path's shape (M=16, widest tier); no
+    # library call takes M <= 16, so the comparison is made at M=32
+    out["pim_time"] = dict(rows[(16, main_n)], library_ms=None,
+                           library_device_ms=None, at_library_shape=dict(
+                               M=32, K=K, N=8192, **lib))
     print(f"[time] pim_mac kernels-line shape M=16 K={K} N={main_n}; "
-          f"library_ms from M=32 N=8192 (torch._int_mm needs M > 16)")
+          f"kernel against torch._int_mm + epilogue at M=32 K={K} N=8192 "
+          f"(no library call takes M <= 16): device-only "
+          f"{lib['device_ms']!r} ms against {lib['library_device_ms']!r} ms")
 
 
 def phase_serve_timing(cfg, out: dict) -> None:

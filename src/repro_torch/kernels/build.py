@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -90,6 +91,20 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence
+          ) -> Callable[..., int]:
+    """The C entry point ``symbol`` of source ``name``, its ``argtypes``
+    and ``int`` return type declared once, when it is first asked for
+    (a wrapper calls this on every launch)."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(status: int, kernel: str) -> None:

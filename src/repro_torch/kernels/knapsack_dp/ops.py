@@ -3,7 +3,10 @@
 :func:`dp_stages` wraps the ``dp_stages`` CUDA kernel
 (``repro_torch/csrc/dp_stages.cu``): CUDA tensors launch the kernel,
 CPU tensors run the plain version (:mod:`.ref`), and a CUDA tensor never
-falls back. Its launch count is ``dp_stages.launches``.
+falls back. Its launch count is ``dp_stages.launches`` (one per call,
+though the kernel runs as a base fill, one launch per stage and a row
+gather). :func:`chain_plan` lays out the kernel's diagonal chains here,
+where the CPU tests can check the geometry, and the kernel follows it.
 
 :func:`knapsack_dp` keeps the contract of the JAX package's op
 (``repro/kernels/knapsack_dp/ops.py``): one cluster's table, or with
@@ -17,8 +20,9 @@ every variant and cluster of a build.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -26,6 +30,56 @@ from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref, gather_rows
+
+CHAINS_PER_WARP = 128                    # Q = 4 chains per lane x 32 lanes
+GRID_X_MAX = 2 ** 31 - 1
+PLANE_MAX = 2 ** 31 - 2 ** 20             # 32-bit index math of one table
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+class ChainPlan(NamedTuple):
+    """Warp layout of the ``dp_stages`` chain kernel, per stage i and
+    table b = v C + c (all int64 arrays):
+
+    * ``residues[i, b] = min(t_i, T + 1)``: the row classes t mod t_i;
+    * ``warps_per_residue[i, b] = ceil((T // t_i + K + 1) /
+      CHAINS_PER_WARP)``: the diagonal chains m = u - k in [-K, T // t_i],
+      ``CHAINS_PER_WARP`` of them per warp;
+    * ``warp_off[i]``: prefix sums of ``residues * warps_per_residue``
+      over the tables, so warp ``w`` of stage i belongs to the table b
+      with ``warp_off[i, b] <= w < warp_off[i, b + 1]``."""
+    residues: np.ndarray
+    warps_per_residue: np.ndarray
+    warp_off: np.ndarray
+
+    @property
+    def stage_warps(self) -> np.ndarray:
+        return self.warp_off[:, -1]
+
+
+def chain_plan(t_items: np.ndarray, T: int, K: int) -> ChainPlan:
+    """The chain kernel's geometry for (V, C, n) tick costs ``t_items``
+    (all >= 1) and (T+1, K+1) tables; raises where a stage's grid would
+    exceed CUDA's limits or a table its 32-bit indexing."""
+    t = np.asarray(t_items, dtype=np.int64)
+    # (n, V C), C-ordered: the kernel reads the plans' rows by pointer
+    t = np.ascontiguousarray(t.reshape(-1, t.shape[-1]).T)
+    residues = np.minimum(t, T + 1)
+    wpr = (T // t + K + CHAINS_PER_WARP) // CHAINS_PER_WARP
+    warps = residues * wpr
+    warp_off = np.zeros((t.shape[0], t.shape[1] + 1), dtype=np.int64)
+    np.cumsum(warps, axis=1, out=warp_off[:, 1:])
+    plan = ChainPlan(residues, wpr, warp_off)
+    if (T + 1) * (K + 1) > PLANE_MAX or t.shape[1] > 65535:
+        raise ValueError(f"dp_stages takes (T+1)(K+1) <= {PLANE_MAX} and "
+                         f"at most 65535 tables, got T={T}, K={K}, "
+                         f"{t.shape[1]} tables")
+    if plan.stage_warps.size and int(plan.stage_warps.max()) * 32 \
+            > GRID_X_MAX:
+        raise ValueError(f"dp_stages: {int(plan.stage_warps.max())} "
+                         f"chain warps in one stage exceed the grid limit "
+                         f"(T={T}, K={K})")
+    return plan
 
 
 def _check_inputs(t_items: torch.Tensor, e_items: torch.Tensor, T: int,
@@ -89,14 +143,16 @@ def dp_stages(t_items: torch.Tensor, e_items: torch.Tensor, T: int, K: int,
     gathered = (None if rows is None else
                 torch.empty((V, C, R, K + 1), dtype=torch.float32,
                             device=dev))
-    fn = build.load("dp_stages").dp_stages_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    plan = chain_plan(t_items.cpu().numpy(), T, K)
+    warp_off = torch.as_tensor(plan.warp_off, dtype=torch.int32).to(dev)
+    wpr = torch.as_tensor(plan.warps_per_residue, dtype=torch.int32).to(dev)
+    stage_warps = np.ascontiguousarray(plan.stage_warps, dtype=np.int32)
+    fn = build.entry("dp_stages", "dp_stages_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(t_items.data_ptr(), e_items.data_ptr(),
                     None if rows is None else rows.data_ptr(),
-                    stages.data_ptr(),
+                    warp_off.data_ptr(), wpr.data_ptr(),
+                    stage_warps.ctypes.data, stages.data_ptr(),
                     None if gathered is None else gathered.data_ptr(),
                     V, C, n, T, K, R,
                     torch.cuda.current_stream(dev).cuda_stream)

@@ -9,7 +9,8 @@ backtrace, in one device pass per build. On the card that pass is two
 kernels on one stream:
 
   * ``dp_stages`` (:func:`repro_torch.kernels.knapsack_dp.ops.dp_stages`)
-    - one block per (variant, cluster): stage tables and row gather;
+    - the stage tables as independent diagonal chains, and the row
+    gather;
   * ``minplus_combine`` (:func:`minplus_combine`, this module's wrapper of
     ``repro_torch/csrc/minplus_combine.cu``) - one block per variant:
     the fold, the final k=K combine and the split backtrace.
@@ -31,6 +32,8 @@ from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.knapsack_dp.ops import dp_stages
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def minplus_combine(gathered: torch.Tensor):
@@ -62,10 +65,8 @@ def minplus_combine(gathered: torch.Tensor):
     fbuf = torch.empty((V, 2, R, K1), dtype=torch.float32, device=dev)
     args = torch.empty((V, max(C - 2, 1), R, K1), dtype=torch.int32,
                        device=dev)
-    fn = build.load("minplus_combine").minplus_combine_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("minplus_combine", "minplus_combine_launch",
+                     _ARGTYPES)
     with torch.cuda.device(dev):
         status = fn(gathered.data_ptr(), fbuf.data_ptr(), args.data_ptr(),
                     min_e.data_ptr(), splits.data_ptr(), V, C, R, K1 - 1,

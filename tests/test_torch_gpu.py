@@ -72,6 +72,40 @@ def test_cuda_knapsack_dp_matches_plain_version():
     assert torch.equal(ours.cpu(), ref)
 
 
+# (V, C, n, T, K, t): t_i = 1 (a dependency every row), t_i > T (no take
+# at all), K = 0, t_i differing per (v, c) in one call, and the gpu-pool
+# shape of knapsack_dp
+DP_EDGE_CASES = [
+    (1, 1, 2, 300, 40, [[[1, 1]]]),
+    (1, 2, 1, 50, 9, [[[51], [400]]]),
+    (2, 1, 2, 70, 0, [[[2, 5]], [[1, 3]]]),
+    (2, 3, 2, 900, 70, [[[18, 18], [1, 33], [7, 901]],
+                        [[3, 2], [64, 1], [18, 5]]]),
+    (1, 1, 2, 14376, 256, [[[18, 18]]]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,C,n,T,K,ts", DP_EDGE_CASES)
+def test_cuda_dp_stages_chain_edge_cases(V, C, n, T, K, ts):
+    dev = _card()
+    rng = np.random.default_rng(T + K)
+    t = torch.tensor(ts, dtype=torch.int32, device=dev)
+    e = torch.as_tensor(rng.uniform(0.5, 40.0, size=(V, C, n)),
+                        dtype=torch.float32, device=dev)
+    rows = torch.as_tensor(rng.integers(0, T + 1, size=(V, 5)),
+                           dtype=torch.int32, device=dev)
+    n0 = kops.dp_stages.launches
+    stages, g = kops.dp_stages(t, e, T, K, rows)
+    torch.cuda.synchronize()
+    assert kops.dp_stages.launches == n0 + 1
+    ref = dp_stages_ref(t, e, T, K)
+    assert torch.equal(stages, ref)
+    vi = torch.arange(V, device=dev).view(V, 1, 1)
+    ci = torch.arange(C, device=dev).view(1, C, 1)
+    assert torch.equal(g, ref[:, :, -1][vi, ci, rows.long().unsqueeze(1)])
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_instead_of_falling_back():
     dev = _card()
@@ -83,10 +117,11 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
         kops.dp_stages(t.cpu() + 1, e, 8, 2)
 
 
-# M, K, N: decode with ragged tier widths, one token, a prefill-sized M,
-# and the ragged shapes of tests/test_kernels.py
+# M, K, N: decode with ragged tier widths, one token, the library-call
+# shape, a prefill-sized M, and the ragged shapes of tests/test_kernels.py
 PIM_SHAPES = [
-    (16, 2048, 928), (16, 2048, 7264), (1, 2048, 8192), (256, 2048, 8192),
+    (16, 2048, 928), (16, 2048, 7264), (1, 2048, 8192), (32, 2048, 8192),
+    (256, 2048, 8192),
     (16, 64, 14), (16, 64, 114), (37, 129, 255), (100, 70, 50), (8, 8, 8),
 ]
 
@@ -112,6 +147,45 @@ def test_cuda_pim_mac_matches_plain_version(M, K, N, out_dtype):
     assert pops.pim_matmul.launches == n0 + 1
     assert out.dtype == out_dtype and out.shape == (M, N)
     assert torch.equal(out, pim_matmul_ref(x, w, sx, sw, out_dtype))
+
+
+# N at and around multiples of 16 (the vector-load rows) and of the
+# 128-column tile, crossed with K around the 64-row step and M around the
+# m16 tile and the two-tile block
+PIM_BOUNDARY_N = [15, 16, 17, 127, 128, 129, 2560]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [129, 2047, 2048, 4096])
+@pytest.mark.parametrize("M", [1, 16, 17, 32, 256])
+def test_cuda_pim_mac_split_and_vector_boundaries(M, K):
+    dev = _card()
+    for N in PIM_BOUNDARY_N:
+        x, w, sx, sw = _pim_case(M * 131 + K * 7 + N, M, K, N, dev)
+        for od in (torch.float32, torch.bfloat16):
+            out = pops.pim_matmul(x, w, sx, sw, out_dtype=od)
+            assert torch.equal(out, pim_matmul_ref(x, w, sx, sw, od)), \
+                (M, K, N, od)
+
+
+@pytest.mark.gpu
+def test_cuda_pim_mac_every_split_count():
+    # one call at each split count the wrapper can choose for K = 2048
+    # (32 steps of 64 rows): widening N gives fewer splits
+    dev = _card()
+    sms = pops._sm_count(dev)
+    K, steps = 2048, 32
+    found = {}
+    for tiles in range(1, 4 * sms + 2):
+        p = pops.split_plan(16, K, tiles * pops.BN - 5, sms)
+        found.setdefault(p.splits, tiles * pops.BN - 5)
+    least = -(-steps // pops.MAX_SPLITS)          # steps per split
+    assert set(found) == {-(-steps // per)
+                          for per in range(least, steps + 1)}
+    for splits, N in sorted(found.items()):
+        x, w, sx, sw = _pim_case(splits, 16, K, N, dev)
+        out = pops.pim_matmul(x, w, sx, sw)
+        assert torch.equal(out, pim_matmul_ref(x, w, sx, sw)), (splits, N)
 
 
 @pytest.mark.gpu

@@ -1,0 +1,183 @@
+"""Launch geometry of the port's CUDA kernels, checked on the CPU.
+
+The kernels themselves run only on the card (tests/test_torch_gpu.py),
+but the geometry they follow is computed in Python by their wrappers:
+``pim_mac``'s split-K plan (``kernels/pim_mac/ops.py::split_plan``) and
+``dp_stages``' diagonal-chain warp layout
+(``kernels/knapsack_dp/ops.py::chain_plan``). These tests hold both to
+what the kernels need: every output column and every k row is covered
+exactly once, and every stage element is visited once, after the element
+it reads. An emulation of the chain kernel's schedule (warp decode, lane
+skew, wavefront steps) reproduces the plain version's tables bit for bit.
+"""
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
+from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
+from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
+
+# M, K, N: decode shapes, the library-call shape, prefill, the ragged
+# shapes of the card tests, and K around the 64-row step
+PIM_SHAPES = [
+    (16, 2048, 8192), (32, 2048, 8192), (1, 2048, 8192), (256, 2048, 8192),
+    (16, 2048, 128), (16, 2048, 928), (17, 2047, 7264), (16, 4096, 2560),
+    (16, 129, 37), (37, 129, 255), (100, 70, 50), (8, 8, 8), (1, 0, 1),
+    (16, 64, 1), (16, 65, 16), (300, 96, 129), (16, 131071, 64),
+]
+
+
+@pytest.mark.parametrize("M,K,N", PIM_SHAPES)
+def test_pim_split_plan_covers_every_column_and_k_row_once(M, K, N):
+    p = pops.split_plan(M, K, N, sms=132)
+    bm = 16 * p.mt
+    # output tiles: every row and column in exactly one tile
+    assert p.m_tiles == math.ceil(M / bm) and p.n_tiles == math.ceil(
+        N / pops.BN)
+    assert p.mt == (1 if M <= 16 else 2)
+    # k chunks: whole BK steps, the splits cover K and none is empty
+    assert p.k_chunk % pops.BK == 0 and p.k_chunk > 0
+    assert p.splits * p.k_chunk >= K
+    assert (p.splits - 1) * p.k_chunk < max(K, 1)
+    cover = np.zeros(K, dtype=int)
+    for z in range(p.splits):
+        cover[z * p.k_chunk:min(K, (z + 1) * p.k_chunk)] += 1
+    assert (cover == 1).all()
+    # CUDA's grid limits, and no more blocks than the target unless the
+    # output tiles alone exceed it
+    assert p.n_tiles <= 2 ** 31 - 1 and p.m_tiles <= 65535
+    assert p.splits <= min(65535, pops.MAX_SPLITS)
+    target = pops.BLOCKS_PER_SM * 132
+    assert p.splits == 1 or p.m_tiles * p.n_tiles * (p.splits - 1) < target
+    assert p.partial_ints == (0 if p.splits == 1 else
+                              p.blocks * bm * pops.THREADS)
+
+
+def test_pim_split_plan_fills_the_card_at_decode():
+    # the decode shape gives about two blocks per SM; a narrow tier is
+    # split as far as MAX_SPLITS allows instead of running on one block
+    wide = pops.split_plan(16, 2048, 8192, sms=132)
+    assert (wide.n_tiles, wide.splits, wide.k_chunk) == (64, 5, 448)
+    assert 2 * 132 <= wide.blocks <= 3 * 132
+    narrow = pops.split_plan(16, 2048, 128, sms=132)
+    assert (narrow.blocks, narrow.k_chunk) == (pops.MAX_SPLITS,
+                                               2048 // pops.MAX_SPLITS)
+    assert pops.split_plan(16, 64, 8192, sms=132).splits == 1
+
+
+def test_pim_split_plan_rejects_what_the_grid_cannot_hold():
+    with pytest.raises(ValueError, match="M, N >= 1"):
+        pops.split_plan(0, 64, 8)
+    with pytest.raises(ValueError, match="CUDA's limits"):
+        pops.split_plan(65536 * 32, 64, 8)
+
+
+def _emulate_chain_kernel(t, e, T, K):
+    """The chain kernel's schedule, lane for lane: per stage, every warp
+    of ``chain_plan`` decodes (table, residue, m0) as the kernel does and
+    walks its wavefront steps, its lanes (32 lanes x Q chains each)
+    vectorized. Returns the stage tables and, per stage, the (warp, step)
+    stamp of every element's visit (-1 where never visited)."""
+    V, C, n = t.shape
+    VC = V * C
+    plan = kops.chain_plan(t, T, K)
+    tt, ee = t.reshape(VC, n), e.reshape(VC, n)
+    K1 = K + 1
+    stages = np.empty((VC, n + 1, T + 1, K1), dtype=np.float32)
+    stages[:, 0] = np.inf
+    stages[:, 0, :, 0] = 0.0
+    stamps = np.full((n, VC, T + 1, K1, 2), -1, dtype=np.int64)
+    chains = kops.CHAINS_PER_WARP
+    # lane j, slot q owns chain m0 - j - 32 q
+    slot = (np.arange(32)[None, :] + 32 * np.arange(chains // 32)[:, None])
+    slot = slot.reshape(-1)
+    for i in range(n):
+        off, wpr = plan.warp_off[i], plan.warps_per_residue[i]
+        for gw in range(int(off[-1])):
+            b = int(np.searchsorted(off, gw, side="right") - 1)
+            ti, ei = int(tt[b, i]), np.float32(ee[b, i])
+            local = gw - int(off[b])
+            rho = local // int(wpr[b])
+            U = (T - rho) // ti
+            m0 = U - chains * (local % int(wpr[b]))
+            m = m0 - slot
+            s_lo, s_hi = max(0, m0 - chains + 1), min(U, m0 + K)
+            carry = np.zeros(chains, dtype=np.float32)
+            for s in range(s_lo, s_hi + 1):
+                k = s - m
+                act = (k >= 0) & (k <= K)
+                row, ka = rho + s * ti, k[act]
+                v = stages[b, i, row, ka].copy()
+                if s > 0:
+                    take = carry[act] + ei
+                    upd = (ka > 0) & (take < v)
+                    v[upd] = take[upd]
+                assert (stamps[i, b, row, ka, 0] == -1).all(), "revisited"
+                stages[b, i + 1, row, ka] = v
+                stamps[i, b, row, ka] = (gw, s)
+                carry[act] = v
+    return stages.reshape(V, C, n + 1, T + 1, K1), stamps
+
+
+# (T, K, t_i per table): the schedule cases of the kernel's design, then
+# tables whose t_i differ within one call, and an inert pad (e = +inf)
+CHAIN_CASES = [
+    (50, 7, [[3]]), (40, 40, [[1]]), (10, 5, [[20]]), (100, 70, [[18]]),
+    (33, 0, [[2]]), (0, 4, [[1]]),
+    (60, 9, [[18, 18], [1, 61], [7, 3]]),
+]
+
+
+@pytest.mark.parametrize("T,K,ts", CHAIN_CASES)
+def test_chain_schedule_visits_each_element_once_after_its_source(T, K, ts):
+    t = np.array(ts, dtype=np.int32).reshape(len(ts), 1, -1)
+    rng = np.random.default_rng(T * 131 + K)
+    e = rng.integers(1, 40, size=t.shape).astype(np.float32)
+    e[-1, 0, -1] = np.inf                                # inert pad
+    stages, stamps = _emulate_chain_kernel(t, e, T, K)
+    n = t.shape[2]
+    # every element of every stage once
+    assert (stamps[..., 0] >= 0).all()
+    # (t, k) after (t - t_i, k - 1): the same warp (lane) one step before
+    tt = t.reshape(-1, n)
+    for i in range(n):
+        for b in range(tt.shape[0]):
+            ti = int(tt[b, i])
+            if ti > T or K == 0:
+                continue
+            src = stamps[i, b, :T + 1 - ti, :K]
+            dst = stamps[i, b, ti:, 1:]
+            assert (dst[..., 0] == src[..., 0]).all()
+            assert (dst[..., 1] == src[..., 1] + 1).all()
+    ref = dp_stages_ref(torch.as_tensor(t), torch.as_tensor(e), T, K)
+    assert np.array_equal(stages, ref.numpy())
+
+
+def test_chain_plan_counts_chains_and_warps_per_table():
+    t = np.array([[[18, 1]], [[500, 7]]], dtype=np.int32)   # (V=2, C=1, n=2)
+    T, K = 100, 40
+    p = kops.chain_plan(t, T, K)
+    assert p.residues.tolist() == [[18, 101], [1, 7]]
+    # chains m = u - k in [-K, T // t_i], CHAINS_PER_WARP per warp
+    expect = [[math.ceil((T // ti + K + 1) / kops.CHAINS_PER_WARP)
+               for ti in row]
+              for row in ([18, 500], [1, 7])]
+    assert p.warps_per_residue.tolist() == expect
+    warps = p.residues * p.warps_per_residue
+    assert p.warp_off[:, 0].tolist() == [0, 0]
+    assert (np.diff(p.warp_off, axis=1) == warps).all()
+    assert p.stage_warps.tolist() == warps.sum(axis=1).tolist()
+    # the wrapper hands the rows of each plan to the kernel by pointer
+    assert p.warps_per_residue.flags.c_contiguous
+    assert p.warp_off.flags.c_contiguous
+    # t_i > T: every row its own residue, (T + 1) ceil((K + 1) / 32)
+    # warps per table, summed over the tables of a stage
+    with pytest.raises(ValueError, match="grid limit"):
+        kops.chain_plan(np.full((16, 1, 1), 2 ** 30, dtype=np.int32),
+                        2 ** 20 - 1, 2 ** 10)
+    with pytest.raises(ValueError, match=r"\(T\+1\)\(K\+1\) <="):
+        kops.chain_plan(np.ones((1, 1, 1), dtype=np.int32), 2 ** 26, 2 ** 10)
