@@ -14,7 +14,11 @@ H100; the kernels are built for sm_90a). Phases:
      shapes: the gpu-pool DVFS clock grid of internlm2_1_8b (V=6, C=2,
      n=2, T=14376, K=256, R=33), the cxl-tier-3 grid (C=3), an edge C=1
      build, a synthetic C=5 build with inert padding, and
-     ``knapsack_dp`` at gpu-pool's T=14376, K=256, t=[18, 18];
+     ``knapsack_dp`` at gpu-pool's T=14376, K=256, t=[18, 18]; then
+     ``minplus_combine`` alone on tie-heavy and infeasible rows
+     (``lut_pipeline.ref.tie_heavy_rows``) at those grids' shapes, C=1,
+     K=0, K=1100 and K=2047 at C=5 (80 KB of shared memory), and its
+     ``ValueError`` for rows beyond one block's shared memory;
   3. drive the placement path with its launch counts set to 0: all 18
      golden LUT digests built with ``device="cuda"``, the per-point
      ``batched=False`` anchor against the fused build, then
@@ -23,12 +27,14 @@ H100; the kernels are built for sm_90a). Phases:
      each), held equal to the same run with ``device="cpu"``; the counts
      are read right after and every kernel must have launched;
   4. time each placement kernel and its plain version with CUDA events
-     at the gpu-pool grid shape, beside the bound (bytes written once
-     over 3.35 TB/s, or operations over 67 TFLOP/s fp32, the larger), and
-     split one ``build_lut_grid`` into kernel, D2H copy and host
-     finalize; torch.profiler adds each op's device-only time (the sum
-     of every CUDA kernel the op launches, all named with the op's name)
-     and the device's idle share over one ``build_lut_grid``;
+     at the gpu-pool grid, the cxl-tier-3 grid and the synthetic C=5
+     shape, beside the bound (bytes written once over 3.35 TB/s, or
+     operations over 67 TFLOP/s fp32, the larger), and split one
+     ``build_lut_grid`` into kernel, D2H copy and host finalize;
+     torch.profiler adds each op's device-only time (the sum of every
+     CUDA kernel the op launches, all named with the op's name; for
+     ``minplus_combine`` the mean over 20 launches) and the device's
+     idle share over one ``build_lut_grid``;
   5. drive the serving path with ``pim_matmul.launches`` set to 0:
      internlm2_1_8b at full width (``scan_layers=False``, random weights
      from a seeded ``torch.Generator`` on the card) through
@@ -369,7 +375,56 @@ def phase_parity(cases: dict, out: dict) -> None:
           f"{'equal' if ok else 'DIFFER'}")
     require(ok, "knapsack_dp kernel != plain")
     errs["dp_stages"] = max(errs["dp_stages"], max_abs_err(k_cuda, k_plain))
+    errs["minplus_combine"] = max(errs["minplus_combine"],
+                                  parity_minplus_ties())
     out["max_abs_err"] = errs
+
+
+# V, C, R, K of the tie-heavy combine rows: the gpu-pool and cxl-tier-3
+# grids, synthetic C=5, C=1, K=0, K+1 > blockDim, and K=2047 at C=5 (80 KB
+# of dynamic shared memory, above the 48 KB default)
+TIE_SHAPES = [(6, 2, 33, 256), (6, 3, 33, 256), (2, 5, 33, 256),
+              (3, 1, 12, 256), (2, 3, 12, 0), (1, 5, 12, 1100),
+              (1, 5, 6, 2047)]
+
+
+def parity_minplus_ties() -> float:
+    """``minplus_combine`` against ``combine_rows_torch`` on rows full of
+    exact ties and infeasible rows; the largest error (0 when equal)."""
+    import torch
+
+    from repro_torch.core.multipool import combine_rows_torch
+    from repro_torch.kernels.lut_pipeline.ops import (combine_plan,
+                                                      minplus_combine)
+    from repro_torch.kernels.lut_pipeline.ref import tie_heavy_rows
+
+    err = 0.0
+    for V, C, R, K in TIE_SHAPES:
+        g = tie_heavy_rows(V, C, R, K, seed=V * 1000 + C * 100 + K,
+                           device="cuda")
+        me_k, sp_k = minplus_combine(g)
+        me_p, sp_p = combine_rows_torch(g)
+        torch.cuda.synchronize()
+        ok = torch.equal(me_k, me_p) and torch.equal(sp_k, sp_p)
+        plan = combine_plan(V, C, R, K)
+        print(f"[parity] minplus_combine tie-heavy V={V} C={C} R={R} K={K} "
+              f"({plan.blocks} blocks x {plan.threads} threads, "
+              f"{plan.shared_bytes} B shared): "
+              f"{'equal' if ok else 'DIFFER'} "
+              f"feasible_rows={int(torch.isfinite(me_k).sum())}/{V * R}")
+        require(ok, f"minplus_combine tie-heavy {(V, C, R, K)} != plain")
+        err = max(err, max_abs_err(me_k, me_p), max_abs_err(sp_k, sp_p))
+    # rows beyond one block's shared memory: raised, never launched
+    n0 = minplus_combine.launches
+    try:
+        minplus_combine(torch.zeros((1, 5, 1, 5805), device="cuda"))
+        raised = False
+    except ValueError as exc:
+        raised = "shared memory" in str(exc)
+    require(raised and minplus_combine.launches == n0,
+            "minplus_combine took rows beyond one block's shared memory")
+    print("[parity] minplus_combine (1, 5, 1, 5805): ValueError, no launch")
+    return err
 
 
 def run_scenarios(name: str, workload, device: str, pc) -> list:
@@ -490,7 +545,7 @@ def minplus_bound_ms(V: int, C: int, R: int, K: int) -> tuple:
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
-def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
+def phase_timing(grid: dict, cxl: dict, syn: dict, out: dict) -> None:
     import torch
 
     from repro_torch import obs
@@ -499,7 +554,8 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
     from repro_torch.kernels.knapsack_dp.ops import dp_stages, knapsack_dp
     from repro_torch.kernels.knapsack_dp.ref import (dp_stages_ref,
                                                      gather_rows)
-    from repro_torch.kernels.lut_pipeline.ops import minplus_combine
+    from repro_torch.kernels.lut_pipeline.ops import (combine_plan,
+                                                      minplus_combine)
 
     # knapsack_dp (one cluster, V = C = 1) at gpu-pool's shape
     t_l, e_l = knapsack_case(grid)
@@ -519,7 +575,8 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
           f"t={t_l}")
 
     timings = {}
-    for label, c in (("gpu-pool grid", grid), ("cxl-tier-3 grid", cxl)):
+    for label, c in (("gpu-pool grid", grid), ("cxl-tier-3 grid", cxl),
+                     ("synthetic C=5", syn)):
         t = torch.as_tensor(c["t"], dtype=torch.int32, device="cuda")
         e = torch.as_tensor(c["e"], dtype=torch.float32, device="cuda")
         rows = torch.as_tensor(c["rows"], dtype=torch.int32, device="cuda")
@@ -550,8 +607,21 @@ def phase_timing(grid: dict, cxl: dict, out: dict) -> None:
         dev = print_profile(f"{label} lut_build", profile_device(
             lambda: minplus_combine(dp_stages(t, e, T, K, rows)[1])),
             ("dp_stages", "minplus_combine"))
-        for k, rec in timings[label].items():
-            rec["device_ms"] = dev[k]
+        timings[label]["dp_stages"]["device_ms"] = dev["dp_stages"]
+        # the combine alone, 20 launches: its device time per launch
+        mc_dev = op_ms(profile_device(
+            lambda: [minplus_combine(g) for _ in range(20)]),
+            "minplus_combine")
+        mc_dev = None if mc_dev is None else mc_dev / 20
+        timings[label]["minplus_combine"]["device_ms"] = mc_dev
+        plan = combine_plan(V, C, R, K)
+        print(f"[time] {label} minplus_combine: device_only_ms={mc_dev!r} "
+              f"(mean of 20 launches; one launch in the lut_build profile:"
+              f" {dev['minplus_combine']!r}) events_ms={mc_ms!r} "
+              f"bound_ms={mc_bound!r} ({mc_by}) device_bound_share="
+              f"{mc_bound / mc_dev if mc_dev else None!r} grid="
+              f"{plan.blocks} blocks x {plan.threads} threads, "
+              f"{plan.shared_bytes} B dynamic shared memory")
         del g
         torch.cuda.empty_cache()
 
@@ -995,7 +1065,7 @@ def main() -> int:
                  "synthetic C=5": synthetic_c5_inputs()}
         phase_parity(cases, out)
         phase_main_path(cfg, out)
-        phase_timing(grid, cxl, out)
+        phase_timing(grid, cxl, cases["synthetic C=5"], out)
         scfg = serve_config()
         phase_serving(scfg, out)
         phase_pim(out)

@@ -12,8 +12,10 @@ kernels on one stream:
     - the stage tables as independent diagonal chains, and the row
     gather;
   * ``minplus_combine`` (:func:`minplus_combine`, this module's wrapper of
-    ``repro_torch/csrc/minplus_combine.cu``) - one block per variant:
-    the fold, the final k=K combine and the split backtrace.
+    ``repro_torch/csrc/minplus_combine.cu``) - one block per consulted
+    row (v, r), its rows in shared memory: the fold, the final k=K
+    combine and the split backtrace. :func:`combine_plan` gives its
+    launch geometry here, where the CPU tests can check it.
 
 Together they replace the JAX package's one fused Pallas kernel
 (``repro/kernels/lut_pipeline/kernel.py::_fused_kernel``). CPU tensors
@@ -23,6 +25,8 @@ integer splits (tests/test_torch_kernels.py, ``chip_smoke.py``).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,7 +37,53 @@ from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.knapsack_dp.ops import dp_stages
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# bytes of shared memory a block may use on an H100 (after the opt-in);
+# the kernel's static part is one (value, index) pair per warp
+SHARED_MAX = 232448
+STATIC_SHARED = 32 * 8
+MAX_THREADS = 1024
+GRID_X_MAX = 2 ** 31 - 1
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+class CombinePlan(NamedTuple):
+    """Launch geometry of one ``minplus_combine`` call: ``blocks`` = V R,
+    one per consulted row (v, r); ``threads`` per block, K+1 rounded up
+    to a multiple of 32 and at most ``MAX_THREADS`` (a fold's outputs
+    are serial chains of k+1 steps, one per thread); ``shared_bytes`` of
+    dynamic shared memory: the C staged rows, two fold accumulators and
+    the C-2 argmin traces, (K+1) words each."""
+    blocks: int
+    threads: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def combine_plan(V: int, C: int, R: int, K: int) -> CombinePlan:
+    """The combine kernel's geometry for gathered rows (V, C, R, K+1);
+    raises ``ValueError`` for a shape whose rows do not fit in one
+    block's shared memory or whose blocks exceed the grid."""
+    if C < 1 or K < 0:
+        raise ValueError(f"minplus_combine needs C >= 1 clusters and K >= "
+                         f"0, got C={C}, K={K}")
+    K1 = K + 1
+    threads = min(MAX_THREADS, 32 * -(-K1 // 32))
+    shared = (C + 2 + max(C - 2, 0)) * K1 * 4
+    if shared + STATIC_SHARED > SHARED_MAX:
+        raise ValueError(
+            f"minplus_combine: gathered (V, C, R, K+1) = ({V}, {C}, {R}, "
+            f"{K1}) needs {shared} bytes of shared memory per block, over "
+            f"the {SHARED_MAX - STATIC_SHARED} a block can have")
+    if V * R > GRID_X_MAX:
+        raise ValueError(f"minplus_combine: V R = {V * R} blocks exceed "
+                         f"the grid limit ({V}, {C}, {R}, {K1})")
+    return CombinePlan(V * R, threads, shared)
+
+
+@functools.lru_cache(maxsize=1)
+def _launcher():
+    return build.entry("minplus_combine", "minplus_combine_launch",
+                       _ARGTYPES)
 
 
 def minplus_combine(gathered: torch.Tensor):
@@ -47,6 +97,9 @@ def minplus_combine(gathered: torch.Tensor):
       min_e:  (V, R) float32 min total energy per row.
       splits: (V, R, C) int32 per-cluster group counts (-1 infeasible),
         bit-matching the numpy ``combine_many`` fold of the same rows.
+
+    A CUDA tensor whose rows exceed one block's shared memory
+    (:func:`combine_plan`) raises ``ValueError``.
     """
     if gathered.dtype != torch.float32 or gathered.ndim != 4:
         raise ValueError(f"gathered must be float32 (V, C, R, K+1), got "
@@ -59,18 +112,14 @@ def minplus_combine(gathered: torch.Tensor):
     if dev.type != "cuda":
         raise ValueError(f"minplus_combine runs on cuda or cpu, not {dev}")
     V, C, R, K1 = gathered.shape
+    plan = combine_plan(V, C, R, K1 - 1)
     min_e = torch.empty((V, R), dtype=torch.float32, device=dev)
     splits = torch.empty((V, R, C), dtype=torch.int32, device=dev)
-    # double-buffered fold accumulator and the middle folds' argmin traces
-    fbuf = torch.empty((V, 2, R, K1), dtype=torch.float32, device=dev)
-    args = torch.empty((V, max(C - 2, 1), R, K1), dtype=torch.int32,
-                       device=dev)
-    fn = build.entry("minplus_combine", "minplus_combine_launch",
-                     _ARGTYPES)
     with torch.cuda.device(dev):
-        status = fn(gathered.data_ptr(), fbuf.data_ptr(), args.data_ptr(),
-                    min_e.data_ptr(), splits.data_ptr(), V, C, R, K1 - 1,
-                    torch.cuda.current_stream(dev).cuda_stream)
+        status = _launcher()(gathered.data_ptr(), min_e.data_ptr(),
+                             splits.data_ptr(), V, C, R, K1 - 1,
+                             plan.threads, plan.shared_bytes,
+                             torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "minplus_combine")
     minplus_combine.launches += 1
     return min_e, splits

@@ -17,6 +17,7 @@ padding changes no byte of any table or combine result.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.multipool import combine_rows_torch
@@ -40,3 +41,50 @@ def lut_pipeline_ref(t_items: torch.Tensor, e_items: torch.Tensor,
     stages = dp_stages_ref(t_items, e_items, T, K)
     min_e, splits = combine_rows_torch(gather_rows(stages[:, :, -1], rows))
     return stages, min_e, splits
+
+
+def tie_heavy_rows(V: int, C: int, R: int, K: int, seed: int = 0,
+                   device="cpu") -> torch.Tensor:
+    """(V, C, R, K+1) float32 gathered rows on which a combine's
+    tie-breaking shows: row r takes the kind ``r % 6`` -
+
+      0. +inf in every cluster (an infeasible row);
+      1. a +inf prefix of random length in each cluster, integers 0..2
+         after it;
+      2. zeros (every split ties);
+      3. the final candidates equal 1 at i = s, s+1, s+32, s+64 and
+         s+1024 (s = K // 3: tied across lanes, across warps and within
+         one thread of a 1024-wide block) and 3 elsewhere; the middle
+         clusters are 0 at k=0 and 3 elsewhere, which leaves the fold
+         unchanged;
+      4. integers 0..2 with a fifth +inf;
+      5. zeros, but the last cluster +inf past k=0: the final combine
+         takes i = K, and the backtrace walks the middle folds' traces
+         at k = K, where every split ties.
+
+    The inputs of the combine kernel's tie tests (CPU emulation, card
+    tests, ``chip_smoke.py``)."""
+    rng = np.random.default_rng(seed)
+    K1 = K + 1
+    g = rng.integers(0, 3, size=(V, C, R, K1)).astype(np.float32)
+    kind = np.arange(R) % 6
+    g[:, :, kind == 0] = np.inf
+    for r in np.flatnonzero(kind == 1):
+        for v in range(V):
+            for c in range(C):
+                g[v, c, r, :rng.integers(0, K1 + 1)] = np.inf
+    g[:, :, kind == 2] = 0.0
+    s = K // 3
+    ties = [i for i in (s, s + 1, s + 32, s + 64, s + 1024) if i <= K]
+    for r in np.flatnonzero(kind == 3):
+        g[:, :, r] = 3.0
+        g[:, 0, r, ties] = 1.0
+        g[:, 1:C - 1, r, 0] = 0.0
+        if C > 1:
+            g[:, C - 1, r] = 0.0
+    for r in np.flatnonzero(kind == 4):
+        g[:, :, r][rng.random((V, C, K1)) < 0.2] = np.inf
+    g[:, :, kind == 5] = 0.0
+    if C > 1:
+        g[:, C - 1, kind == 5, 1:] = np.inf
+    return torch.from_numpy(g).to(device)

@@ -12,10 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.multipool import combine_rows_torch  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
 from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
 from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
-from repro_torch.kernels.lut_pipeline.ref import lut_pipeline_ref  # noqa: E402
+from repro_torch.kernels.lut_pipeline.ref import (  # noqa: E402
+    lut_pipeline_ref, tie_heavy_rows)
 from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
 from repro_torch.kernels.pim_mac.ref import pim_matmul_ref  # noqa: E402
 
@@ -115,6 +117,44 @@ def test_cuda_wrappers_raise_instead_of_falling_back():
         kops.dp_stages(t, e, 8, 2)
     with pytest.raises(ValueError, match="share a device"):
         kops.dp_stages(t.cpu() + 1, e, 8, 2)
+
+
+# V, C, R, K of the combine's tie-heavy rows: the gpu-pool and
+# cxl-tier-3 grids, synthetic C=5, C=1, K=0, K+1 < 32, K+1 not a
+# multiple of 32, K+1 > blockDim, and K=2047 at C=5 (80 KB of shared
+# memory, above the 48 KB that needs the opt-in)
+COMBINE_SHAPES = [
+    (6, 2, 33, 256), (6, 3, 33, 256), (2, 5, 33, 256), (3, 1, 12, 256),
+    (2, 3, 12, 0), (2, 4, 12, 20), (2, 3, 12, 40), (1, 5, 12, 1100),
+    (1, 5, 6, 2047),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,C,R,K", COMBINE_SHAPES)
+def test_cuda_minplus_combine_ties_infeasible_rows_and_shapes(V, C, R, K):
+    dev = _card()
+    g = tie_heavy_rows(V, C, R, K, seed=V * 1000 + C * 100 + K, device=dev)
+    n0 = lops.minplus_combine.launches
+    min_e, splits = lops.minplus_combine(g)
+    torch.cuda.synchronize()
+    assert lops.minplus_combine.launches == n0 + 1
+    ref_e, ref_s = combine_rows_torch(g)
+    assert torch.equal(min_e, ref_e)
+    assert torch.equal(splits, ref_s)
+
+
+@pytest.mark.gpu
+def test_cuda_minplus_combine_raises_beyond_shared_memory():
+    dev = _card()
+    g = torch.zeros((1, 5, 1, 5805), dtype=torch.float32, device=dev)
+    n0 = lops.minplus_combine.launches
+    with pytest.raises(ValueError, match=r"\(1, 5, 1, 5805\) needs"):
+        lops.minplus_combine(g)
+    assert lops.minplus_combine.launches == n0
+    min_e, _ = lops.minplus_combine(g[..., :5804].contiguous())
+    assert lops.minplus_combine.launches == n0 + 1
+    assert torch.equal(min_e, torch.zeros((1, 1), device=dev))
 
 
 # M, K, N: decode with ragged tier widths, one token, the library-call

@@ -2,13 +2,17 @@
 
 The kernels themselves run only on the card (tests/test_torch_gpu.py),
 but the geometry they follow is computed in Python by their wrappers:
-``pim_mac``'s split-K plan (``kernels/pim_mac/ops.py::split_plan``) and
+``pim_mac``'s split-K plan (``kernels/pim_mac/ops.py::split_plan``),
 ``dp_stages``' diagonal-chain warp layout
-(``kernels/knapsack_dp/ops.py::chain_plan``). These tests hold both to
-what the kernels need: every output column and every k row is covered
-exactly once, and every stage element is visited once, after the element
-it reads. An emulation of the chain kernel's schedule (warp decode, lane
-skew, wavefront steps) reproduces the plain version's tables bit for bit.
+(``kernels/knapsack_dp/ops.py::chain_plan``) and ``minplus_combine``'s
+block per row (``kernels/lut_pipeline/ops.py::combine_plan``). These
+tests hold them to what the kernels need: every output column and every
+k row is covered exactly once, every stage element is visited once,
+after the element it reads, and a combine's rows fit one block's shared
+memory. Emulations of the chain kernel's schedule (warp decode, lane
+skew, wavefront steps) and of the combine kernel's (per-thread folds,
+the lexicographic block reduction, the backtrace) reproduce the plain
+versions bit for bit.
 """
 import math
 
@@ -17,8 +21,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.core.multipool import combine_many  # noqa: E402
+from repro_torch.core.multipool import combine_rows_torch  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
 from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
+from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
+from repro_torch.kernels.lut_pipeline.ref import tie_heavy_rows  # noqa: E402
 from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
 
 # M, K, N: decode shapes, the library-call shape, prefill, the ragged
@@ -181,3 +189,168 @@ def test_chain_plan_counts_chains_and_warps_per_table():
                         2 ** 20 - 1, 2 ** 10)
     with pytest.raises(ValueError, match=r"\(T\+1\)\(K\+1\) <="):
         kops.chain_plan(np.ones((1, 1, 1), dtype=np.int32), 2 ** 26, 2 ** 10)
+
+
+INT_MAX = 2 ** 31 - 1
+
+
+def _warp_lex_min(v, i):
+    """``warp_lex_min`` over (warps, 32) lanes: five ``__shfl_down_sync``
+    steps (a lane past the end reads its own pair), each keeping the
+    lexicographic (value, index) minimum. Lane 0 holds the warp's."""
+    v, i = v.copy(), i.copy()
+    for off in (16, 8, 4, 2, 1):
+        ov, oi = v.copy(), i.copy()
+        ov[:, :32 - off], oi[:, :32 - off] = v[:, off:], i[:, off:]
+        take = (ov < v) | ((ov == v) & (oi < i))
+        v[take], i[take] = ov[take], oi[take]
+    return v, i
+
+
+def _emulate_combine_kernel(gathered):
+    """The combine kernel's schedule, block by block: one block per row
+    (v, r) of ``combine_plan``; its threads (vectorized) own outputs
+    k = tid + j blockDim of each fold and scan i ascending with a strict
+    <; the final candidates are scanned per thread, reduced across the
+    lanes of each warp, then across warps in warp 0; one thread
+    backtraces. Returns min_e (V, R) float32 and splits (V, R, C)."""
+    V, C, R, K1 = gathered.shape
+    K = K1 - 1
+    plan = lops.combine_plan(V, C, R, K)
+    nt = plan.threads
+    tid = np.arange(nt)
+    min_e = np.empty((V, R), np.float32)
+    splits = np.empty((V, R, C), np.int32)
+    for row in range(plan.blocks):
+        v, r = divmod(row, R)
+        G = gathered[v, :, r]                    # the staged rows
+        if C == 1:
+            min_e[v, r] = G[0, K]
+            splits[v, r] = K if np.isfinite(G[0, K]) else -1
+            continue
+        F, traces = G[0], []
+        for c in range(1, C - 1):
+            Fn = np.empty(K1, np.float32)
+            A = np.empty(K1, np.int32)
+            for j in range(-(-K1 // nt)):
+                k = tid + j * nt
+                k = k[k < K1]
+                best = np.full(k.shape, np.inf, np.float32)
+                arg = np.zeros(k.shape, np.int32)
+                for i in range(int(k.max()) + 1):  # lanes with k < i idle
+                    act = np.flatnonzero(i <= k)
+                    cand = F[i] + G[c, k[act] - i]
+                    take = cand < best[act]
+                    best[act[take]] = cand[take]
+                    arg[act[take]] = i
+                Fn[k], A[k] = best, arg
+            F = Fn
+            traces.append(A)
+        bv = np.full(nt, np.inf, np.float32)
+        bi = np.full(nt, INT_MAX, np.int64)
+        own = tid[tid <= K]
+        bv[own] = F[own] + G[C - 1, K - own]
+        bi[own] = own
+        for i0 in range(nt, K1, nt):
+            i = tid + i0
+            act = np.flatnonzero(i <= K)
+            cand = F[i[act]] + G[C - 1, K - i[act]]
+            take = cand < bv[act]
+            bv[act[take]], bi[act[take]] = cand[take], i[act[take]]
+        wv, wi = _warp_lex_min(bv.reshape(-1, 32), bi.reshape(-1, 32))
+        lv = np.full((1, 32), np.inf, np.float32)
+        li = np.full((1, 32), INT_MAX, np.int64)
+        lv[0, :nt // 32], li[0, :nt // 32] = wv[:, 0], wi[:, 0]
+        lv, li = _warp_lex_min(lv, li)
+        best, i_opt = lv[0, 0], int(li[0, 0])
+        min_e[v, r] = best
+        if not np.isfinite(best):
+            splits[v, r] = -1
+            continue
+        splits[v, r, C - 1] = K - i_opt
+        k = i_opt
+        for c in range(C - 2, 0, -1):
+            ip = int(traces[c - 1][k])
+            splits[v, r, c] = k - ip
+            k = ip
+        splits[v, r, 0] = k
+    return min_e, splits
+
+
+# V, C, R, K: C = 1..5; K = 0; K+1 < 32; K+1 not a multiple of 32; K+1
+# a multiple of 32; the main-path K; K+1 > blockDim (1024): the block's
+# threads own two outputs of a fold and two final candidates each
+COMBINE_CASES = [
+    (2, 1, 6, 6), (1, 1, 6, 0), (2, 2, 6, 0), (1, 3, 6, 0), (1, 5, 6, 0),
+    (2, 2, 7, 20), (2, 3, 6, 40), (1, 4, 6, 63), (1, 5, 6, 100),
+    (1, 3, 6, 256), (1, 2, 6, 1100), (1, 3, 6, 1100), (1, 5, 6, 1100),
+]
+
+
+@pytest.mark.parametrize("V,C,R,K", COMBINE_CASES)
+def test_combine_schedule_matches_plain_and_reference_folds(V, C, R, K):
+    g = tie_heavy_rows(V, C, R, K, seed=V * 1000 + C * 100 + K).numpy()
+    min_e, splits = _emulate_combine_kernel(g)
+    ref_e, ref_s = combine_rows_torch(torch.from_numpy(g))
+    assert np.array_equal(min_e.view(np.uint32), ref_e.numpy().view(np.uint32))
+    assert np.array_equal(splits, ref_s.numpy())
+    for v in range(V):
+        np_e, np_s = combine_many(list(g[v]))
+        assert np.array_equal(min_e[v].view(np.uint32),
+                              np_e.astype(np.float32).view(np.uint32))
+        assert np.array_equal(splits[v], np_s)
+    # the rows hold what the cases promise: infeasible rows, and a first
+    # minimum tied across lanes and warps at i = K // 3 (kind 3)
+    assert (splits[:, 0] == -1).all()
+    if C > 1:
+        assert (splits[:, 3, C - 1] == K - K // 3).all()
+        # kind 5: all K groups before the last cluster; each middle
+        # fold's tie at k = K goes to its first minimum i = 0, so the
+        # last middle cluster takes them all
+        expect = [0] * C
+        expect[max(C - 2, 0)] = K
+        assert splits[:, 5].tolist() == [expect] * V
+
+
+def test_combine_tie_rows_tie_across_lanes_warps_and_threads():
+    # kind 3 at K=1200 (s = 400): the final candidates are minimal at
+    # i = 400, 401 (lanes 16, 17 of warp 12), 432 (warp 13), 464 (warp
+    # 14) and 1424 > K; at K=1600 (s = 533) also at 1557, the second
+    # candidate of thread 533
+    for K, s, ties in ((1200, 400, [400, 401, 432, 464]),
+                       (1600, 533, [533, 534, 565, 597, 1557])):
+        g = tie_heavy_rows(1, 2, 5, K).numpy()
+        cand = g[0, 0, 3] + g[0, 1, 3, ::-1]
+        assert np.flatnonzero(cand == cand.min()).tolist() == ties
+        assert lops.combine_plan(1, 2, 5, K).threads == 1024
+        min_e, splits = _emulate_combine_kernel(g)
+        assert splits[0, 3].tolist() == [s, K - s]
+    assert np.array_equal(splits, combine_rows_torch(
+        torch.from_numpy(g))[1].numpy())
+
+
+@pytest.mark.parametrize("V,C,R,K", [(6, 2, 33, 256), (6, 3, 33, 256),
+                                     (2, 5, 33, 256), (1, 5, 1, 2047),
+                                     (3, 1, 7, 0), (4, 4, 9, 40)])
+def test_combine_plan_gives_one_block_per_row(V, C, R, K):
+    p = lops.combine_plan(V, C, R, K)
+    assert p.blocks == V * R
+    assert p.threads % 32 == 0 and 32 <= p.threads <= lops.MAX_THREADS
+    assert p.threads == min(32 * -(-(K + 1) // 32), lops.MAX_THREADS)
+    assert p.shared_bytes == (C + 2 + max(C - 2, 0)) * (K + 1) * 4
+
+
+def test_combine_plan_shared_memory_and_its_limit():
+    assert lops.combine_plan(6, 2, 33, 256).shared_bytes == 4112
+    assert lops.combine_plan(2, 5, 33, 256).shared_bytes == 10280
+    # K=2047, C=5 takes the opt-in above 48 KB
+    assert lops.combine_plan(1, 5, 1, 2047).shared_bytes == 81920 > 48 * 1024
+    # the largest K whose C=5 rows fit beside the static reduction pairs
+    assert lops.combine_plan(1, 5, 1, 5803).shared_bytes \
+        + lops.STATIC_SHARED <= lops.SHARED_MAX
+    with pytest.raises(ValueError, match=r"\(1, 5, 1, 5805\) needs 232200"):
+        lops.combine_plan(1, 5, 1, 5804)
+    with pytest.raises(ValueError, match="shared memory"):
+        lops.combine_plan(2, 2, 33, 2 ** 16)
+    with pytest.raises(ValueError, match="C >= 1"):
+        lops.combine_plan(1, 0, 3, 4)
