@@ -56,10 +56,38 @@ H100; the kernels are built for sm_90a). Phases:
      the same epilogue, timed the same two ways; split one
      ``run_slice`` into scheduler step, retier, decode and
      ``tiered_forward``, and time one full-width ``decode_step``;
-  7. print the ``{"kernels": [...]}`` line (each kernel's CUDA-event
-     ``ms`` and profiler ``device_ms``; ``pim_mac`` also its comparison
-     with the library call at M=32 under ``at_library_shape``) and, last,
-     the ``{"ok": true, "device": {...}}`` line.
+  7. the other model families (every architecture of the registry now
+     runs in the port): each family's smoke model in fp32 (TF32 off),
+     params from ``init_lm`` on a CPU generator copied to the card,
+     held to the CPU within 1e-4 - ``forward`` with prefix embeddings or
+     encoder frames, ``prefill`` and three ``decode_step``s, one with
+     per-row positions - for arctic_480b, llama4_scout_17b_a16e,
+     recurrentgemma_2b, xlstm_1_3b, seamless_m4t_medium and pixtral_12b,
+     and a recurrentgemma decode that wraps its 16-slot ring buffer;
+  8. the families at full width, one model at a time (freed before the
+     next), each line naming its cut: recurrentgemma_2b whole,
+     xlstm_1_3b whole (48 layers, d_ff=0, scanned), seamless_m4t_medium
+     whole (``encode`` of 32 frames per row), pixtral_12b 8 of 40 layers
+     with 256 prefix embeds, llama4_scout_17b_a16e 4 of 48 layers with
+     all 16 experts (arctic_480b does not fit one card and runs at smoke
+     width only). Each prints its parameter count and bytes, one B=4
+     ``decode_step`` by CUDA events and its device busy time and idle
+     share by torch.profiler; recurrentgemma and xlstm hold prefill +
+     decode of 8 tokens to ``forward`` in bf16, llama4 holds one MoE
+     layer on the card to the CPU in fp32 at a decode batch and at a
+     prefill batch that drops tokens over capacity;
+  9. serve recurrentgemma_2b at full width (``scan_layers=False``)
+     through ``api.engine("gpu-pool", ...)`` as in phase 5 with
+     ``pim_matmul.launches`` set to 0: 52 matrices per migration, int8
+     tiers bitwise to the CPU, ``pim_mac`` at K=2560; ``DecodeEngine``
+     with 6 requests of 8 tokens; ``pim_mac`` against its plain version
+     at the tier widths and timed L2-cold at the widest int8 tier;
+  10. print each phase's seconds, the ``{"kernels": [...]}`` line (each
+     kernel's CUDA-event ``ms`` and profiler ``device_ms``; ``pim_mac``
+     also its comparison with the library call at M=32 under
+     ``at_library_shape``, its recurrentgemma row under
+     ``at_recurrentgemma_shape`` and its launches per serving path) and,
+     last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line, as does a machine
 without a CUDA card or a directory without the repository's ``src/``.
@@ -728,16 +756,89 @@ def check_tiered_forward(eng, x, y) -> dict:
     return widths
 
 
-def phase_serving(cfg, out: dict) -> None:
-    import dataclasses
-
+def serve_slices(cfg, params, x, label: str) -> dict:
+    """Drive ``cfg``'s serving path through ``api.engine("gpu-pool")``
+    for SERVE_SLICES slices of ``case6_random`` with
+    ``pim_matmul.launches`` set to 0 just before and read just after.
+    Every retier must tier both FFN input matrices of every layer, each
+    int8 segment must dequantize to within one step of its columns, and
+    ``tiered_forward`` on ``x`` must equal the same segments composed on
+    the CPU (int8 tiers bitwise)."""
     import torch
 
     from repro_torch import api
     from repro_torch.core import workloads
     from repro_torch.kernels.pim_mac.ops import pim_matmul
-    from repro_torch.models import lm
+
+    pim_matmul.launches = 0
+    t0 = time.perf_counter()
+    eng = api.engine("gpu-pool", cfg, params, max_batch=16, device="cuda")
+    loads = workloads.SCENARIOS["case6_random"][:SERVE_SLICES]
+    widths, placements, worst = {}, [], 0.0
+    for i, n in enumerate(loads):
+        r = eng.run_slice(min(n, eng.max_batch))
+        if r.retiered:
+            require(len(eng._tiered) == 2 * cfg.n_layers,
+                    f"{label} slice {i}: {len(eng._tiered)} matrices tiered")
+            worst = max(worst, check_tiering(eng, params))
+            placements.append(dict(r.report.placement))
+        y = eng.tiered_forward(x)
+        require(y.shape == (16, cfg.d_ff) and bool(torch.isfinite(y).all()),
+                f"{label} slice {i}: tiered_forward {tuple(y.shape)}")
+        if r.retiered:
+            for name, w in check_tiered_forward(eng, x, y).items():
+                widths.setdefault(name, set()).add(w)
+        require(len(r.tokens) == min(r.report.n_done, eng.max_batch),
+                f"{label} slice {i}: {len(r.tokens)} tokens")
+        used = {k: v for k, v in r.report.placement.items() if v}
+        print(f"[serve] {label} slice {i} load {n}: "
+              f"E={r.report.energy_pj!r} pJ "
+              f"retier={'y' if r.retiered else 'n'} "
+              f"{'ok' if r.report.deadline_met else 'MISS'} {used} "
+              f"tokens={r.tokens.tolist()}")
+    torch.cuda.synchronize()
+    launches = pim_matmul.launches
+    elapsed = time.perf_counter() - t0
+    print(f"[serve] {label} gpu-pool: {len(placements)} retiers x "
+          f"{2 * cfg.n_layers} matrices; int8 segments within {worst!r} "
+          f"steps; tiered_forward int8 tiers == cpu; tier widths "
+          f"{ {k: sorted(v) for k, v in widths.items()} }; pim_matmul "
+          f"launches during the serving path: {launches} ({elapsed:.2f} s)")
+    require(launches > 0, f"pim_mac never launched on {label}'s serving path")
+    return dict(engine=eng, launches=launches, placements=placements,
+                int8_widths=sorted({w for k, v in widths.items()
+                                    if k.endswith("int8") for w in v}))
+
+
+def decode_engine_run(cfg, params, label: str) -> None:
+    """``DecodeEngine``: 6 requests of 8 tokens at batch 4."""
+    import torch
+
     from repro_torch.serve.engine import DecodeEngine, Request
+
+    t0 = time.perf_counter()
+    deng = DecodeEngine(cfg, params, max_batch=4, max_len=64, device="cuda")
+    for rid in range(6):
+        deng.submit(Request(rid=rid, prompt=[1 + rid, 2, 3],
+                            max_new_tokens=8))
+    done = deng.run_until_done()
+    torch.cuda.synchronize()
+    require(sorted(r.rid for r in done) == list(range(6))
+            and all(len(r.out) == 8 for r in done),
+            f"{label} DecodeEngine: {[(r.rid, len(r.out)) for r in done]}")
+    steps = deng.step_times_s
+    print(f"[serve] {label} DecodeEngine: 6/6 requests x 8 tokens in "
+          f"{len(steps)} steps, {time.perf_counter() - t0:.2f} s; median "
+          f"step {sorted(steps)[len(steps) // 2] * 1e3!r} ms; "
+          f"outputs {[r.out for r in sorted(done, key=lambda r: r.rid)]}")
+
+
+def phase_serving(cfg, out: dict) -> None:
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -752,62 +853,12 @@ def phase_serving(cfg, out: dict) -> None:
           f"vocab={cfg.vocab_size} dtype={cfg.dtype}: {n_params} params "
           f"initialised on cuda in {time.perf_counter() - t0:.2f} s")
 
-    pim_matmul.launches = 0
-    t0 = time.perf_counter()
-    eng = api.engine("gpu-pool", cfg, params, max_batch=16, device="cuda")
-    loads = workloads.SCENARIOS["case6_random"][:SERVE_SLICES]
-    widths, placements, worst = {}, [], 0.0
-    for i, n in enumerate(loads):
-        r = eng.run_slice(min(n, eng.max_batch))
-        if r.retiered:
-            require(len(eng._tiered) == 2 * cfg.n_layers,
-                    f"slice {i}: {len(eng._tiered)} matrices tiered")
-            worst = max(worst, check_tiering(eng, params))
-            placements.append(dict(r.report.placement))
-        y = eng.tiered_forward(x)
-        require(y.shape == (16, cfg.d_ff) and bool(torch.isfinite(y).all()),
-                f"slice {i}: tiered_forward {tuple(y.shape)}")
-        if r.retiered:
-            for name, w in check_tiered_forward(eng, x, y).items():
-                widths.setdefault(name, set()).add(w)
-        require(len(r.tokens) == min(r.report.n_done, eng.max_batch),
-                f"slice {i}: {len(r.tokens)} tokens")
-        used = {k: v for k, v in r.report.placement.items() if v}
-        print(f"[serve] slice {i} load {n}: E={r.report.energy_pj!r} pJ "
-              f"retier={'y' if r.retiered else 'n'} "
-              f"{'ok' if r.report.deadline_met else 'MISS'} {used} "
-              f"tokens={r.tokens.tolist()}")
-    torch.cuda.synchronize()
-    launches = pim_matmul.launches
-    elapsed = time.perf_counter() - t0
-    print(f"[serve] gpu-pool: {len(placements)} retiers x "
-          f"{2 * cfg.n_layers} matrices; int8 segments within {worst!r} "
-          f"steps; tiered_forward int8 tiers == cpu; tier widths "
-          f"{ {k: sorted(v) for k, v in widths.items()} }; pim_matmul "
-          f"launches during the serving path: {launches} ({elapsed:.2f} s)")
-    require(launches > 0, "pim_mac never launched on the serving path")
-    out["pim_launches"] = launches
-    out["int8_widths"] = sorted({w for k, v in widths.items()
-                                 if k.endswith("int8") for w in v})
-    out["engine"], out["x"], out["placements"] = eng, x, placements
-
-    # DecodeEngine: continuous batching on the same weights
-    t0 = time.perf_counter()
-    deng = DecodeEngine(cfg, params, max_batch=4, max_len=64, device="cuda")
-    for rid in range(6):
-        deng.submit(Request(rid=rid, prompt=[1 + rid, 2, 3],
-                            max_new_tokens=8))
-    done = deng.run_until_done()
-    torch.cuda.synchronize()
-    require(sorted(r.rid for r in done) == list(range(6))
-            and all(len(r.out) == 8 for r in done),
-            f"DecodeEngine: {[(r.rid, len(r.out)) for r in done]}")
-    steps = deng.step_times_s
-    print(f"[serve] DecodeEngine: 6/6 requests x 8 tokens in "
-          f"{len(steps)} steps, {time.perf_counter() - t0:.2f} s; median "
-          f"step {sorted(steps)[len(steps) // 2] * 1e3!r} ms; "
-          f"outputs {[r.out for r in sorted(done, key=lambda r: r.rid)]}")
-    del deng
+    run = serve_slices(cfg, params, x, cfg.name)
+    out["pim_launches"] = run["launches"]
+    out["int8_widths"] = run["int8_widths"]
+    out["engine"], out["x"] = run["engine"], x
+    out["placements"] = run["placements"]
+    decode_engine_run(cfg, params, cfg.name)
 
     # one decode_step of a 2-layer fp32 model at the same widths, cuda
     # against cpu
@@ -874,10 +925,54 @@ def cold_ms(fn, ws, reps: int) -> float:
     return cuda_ms(step, reps=reps, warmup=1)
 
 
-def phase_pim(out: dict) -> None:
+def pim_time_row(gen, M: int, K: int, N: int, sms: int) -> dict:
+    """``pim_mac`` at (M, K, N), L2-cold with fp32 output: CUDA-event and
+    profiler device-only ms beside its bound, its plain version and, at
+    M > 16, ``torch._int_mm`` plus the same epilogue."""
     import torch
 
     from repro_torch.kernels.pim_mac.ops import pim_matmul, split_plan
+    from repro_torch.kernels.pim_mac.ref import pim_matmul_ref
+
+    # enough copies to stream past the 50 MB L2 (capped: a narrow tier's
+    # weights stay L2-resident, as its layers' would)
+    copies = min(64, max(2, -(-160 * 2 ** 20 // (K * N))))
+    x, ws, sx, sw = pim_inputs(gen, M, K, N, copies=copies)
+    ms = cold_ms(lambda w: pim_matmul(x, w, sx, sw), ws, reps=60)
+    plain_ms = cold_ms(lambda w: pim_matmul_ref(x, w, sx, sw), ws, reps=6)
+
+    def device_ms(fn, op):
+        """Device-only ms per call of ``fn`` over 8 weight copies."""
+        total = op_ms(profile_device(lambda: [fn(w) for w in ws[:8]]), op)
+        return None if total is None else total / min(8, len(ws))
+
+    lib_ms = lib_dev = None
+    if M > 16 and K % 8 == 0 and N % 8 == 0:
+        def library(w):
+            return torch._int_mm(x, w).float() * sx[:, None] * sw[None, :]
+        lib_ms = cold_ms(library, ws, reps=60)
+        lib_dev = device_ms(library, "")      # all of its kernels
+    bound, by = pim_bound_ms(M, K, N, 4)
+    dev_ms = device_ms(lambda w: pim_matmul(x, w, sx, sw), "pim_mac")
+    plan = split_plan(M, K, N, sms)
+    print(f"[time] pim_mac M={M} K={K} N={N}: ms={ms!r} "
+          f"device_only_ms={dev_ms!r} plain_ms={plain_ms!r} "
+          f"bound_ms={bound!r} ({by}) library_ms={lib_ms!r} "
+          f"library_device_only_ms={lib_dev!r} (torch._int_mm + "
+          f"epilogue) device_bound_share="
+          f"{bound / dev_ms if dev_ms else None!r} splits={plan.splits}"
+          f" blocks={plan.blocks} ({copies} weight copies, "
+          f"{copies * K * N / 2 ** 20:.1f} MiB cycled)")
+    del x, ws
+    torch.cuda.empty_cache()
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, library_device_ms=lib_dev)
+
+
+def phase_pim(out: dict) -> None:
+    import torch
+
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
     from repro_torch.kernels.pim_mac.ref import pim_matmul_ref
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -921,42 +1016,7 @@ def phase_pim(out: dict) -> None:
     main_n = max(out["int8_widths"] or [8192])
     for M, N in sorted({(16, n) for n in out["int8_widths"]}
                        | {(16, 8192), (1, 8192), (256, 8192), (32, 8192)}):
-        # enough copies to stream past the 50 MB L2 (capped: a narrow
-        # tier's weights stay L2-resident, as its layers' would)
-        copies = min(64, max(2, -(-160 * 2 ** 20 // (K * N))))
-        x, ws, sx, sw = pim_inputs(gen, M, K, N, copies=copies)
-        ms = cold_ms(lambda w: pim_matmul(x, w, sx, sw), ws, reps=60)
-        plain_ms = cold_ms(lambda w: pim_matmul_ref(x, w, sx, sw), ws,
-                           reps=6)
-        def device_ms(fn, op):
-            """Device-only ms per call of ``fn`` over 8 weight copies."""
-            total = op_ms(profile_device(lambda: [fn(w) for w in ws[:8]]),
-                          op)
-            return None if total is None else total / min(8, len(ws))
-
-        lib_ms = lib_dev = None
-        if M > 16 and K % 8 == 0 and N % 8 == 0:
-            def library(w):
-                return (torch._int_mm(x, w).float() * sx[:, None]
-                        * sw[None, :])
-            lib_ms = cold_ms(library, ws, reps=60)
-            lib_dev = device_ms(library, "")      # all of its kernels
-        bound, by = pim_bound_ms(M, K, N, 4)
-        dev_ms = device_ms(lambda w: pim_matmul(x, w, sx, sw), "pim_mac")
-        rows[(M, N)] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                            bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                            library_device_ms=lib_dev)
-        plan = split_plan(M, K, N, sms)
-        print(f"[time] pim_mac M={M} K={K} N={N}: ms={ms!r} "
-              f"device_only_ms={dev_ms!r} plain_ms={plain_ms!r} "
-              f"bound_ms={bound!r} ({by}) library_ms={lib_ms!r} "
-              f"library_device_only_ms={lib_dev!r} (torch._int_mm + "
-              f"epilogue) device_bound_share="
-              f"{bound / dev_ms if dev_ms else None!r} splits={plan.splits}"
-              f" blocks={plan.blocks} ({copies} weight copies, "
-              f"{copies * K * N / 2 ** 20:.1f} MiB cycled)")
-        del x, ws
-        torch.cuda.empty_cache()
+        rows[(M, N)] = pim_time_row(gen, M, K, N, sms)
     lib = rows[(32, 8192)]
     # the kernels line: the main path's shape (M=16, widest tier); no
     # library call takes M <= 16, so the comparison is made at M=32
@@ -1026,6 +1086,395 @@ def phase_serve_timing(cfg, out: dict) -> None:
         lambda: lm.decode_step(eng.params, cfg, st, toks, 6)), ())
 
 
+# -- the other model families -----------------------------------------------
+
+FAMILIES = ["arctic_480b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
+            "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b"]
+# fp32 smoke models (TF32 off), cuda against cpu: sums of at most a few
+# hundred terms taken in another order, through at most 16 blocks
+FAMILY_ATOL = 1e-4
+# full width, forward against prefill + decode of the same tokens,
+# relative to the largest |logit|. recurrentgemma_2b in its bf16: both
+# paths round every activation to bf16 (2^-8 apart at 1.0) in GEMMs of
+# other shapes, which its 26 blocks keep below 16 units of 2^-8.
+BF16_PATH_RTOL = 16 * 2.0 ** -8
+# xlstm_1_3b's random-init 48-block stack is ill-conditioned (an input
+# change of 2^-12 moves its hidden state by about a third in fp32 and
+# more than half in bf16 on the H100; ``stack_sensitivity`` prints it),
+# so the two paths of its whole stack are held in fp32, where they
+# agree an order of magnitude inside 1e-3 of the largest logit. In bf16
+# each recurrent block is held alone: it rounds to bf16 at up to seven
+# points (projections, gates, the cell output, its product with the
+# gate, the output projection) in GEMMs of other shapes, within 8 units
+# of 2^-8 of its largest output
+XLSTM_FP32_PATH_RTOL = 1e-3
+BLOCK_BF16_RTOL = 8 * 2.0 ** -8
+# one full-width MoE layer in fp32, cuda against cpu: sums of up to 8192
+# terms in another order (outputs O(1))
+MOE_LAYER_ATOL = 1e-3
+
+
+def family_inputs(cfg, B: int, S: int, gen, frames: int, device):
+    """Token ids and the family's extra inputs (prefix embeddings, encoder
+    frames) drawn from ``gen``."""
+    import torch
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=gen.device).to(device)
+    extra = {}
+    if cfg.n_prefix_embeds:
+        extra["prefix_embeds"] = torch.randn(
+            (B, cfg.n_prefix_embeds, cfg.d_model), generator=gen,
+            device=gen.device).to(device)
+    if cfg.is_encdec:
+        extra["enc_frames"] = torch.randn(
+            (B, frames, cfg.d_model), generator=gen,
+            device=gen.device).to(device)
+    return toks, extra
+
+
+def family_logits(cfg, params, toks, extra) -> list:
+    """forward (with the family's extra inputs), prefill and three
+    decode steps, the last with per-row positions; logits on the CPU."""
+    import torch
+
+    from repro_torch.models import lm
+    dev = toks.device
+    outs = [lm.forward(params, cfg, toks, **extra)[0]]
+    logits, st = lm.prefill(params, cfg, toks, max_len=16, **extra)
+    outs.append(logits)
+    n = toks.shape[1] + cfg.n_prefix_embeds
+    for i, pos in enumerate((n, n + 1, [n + 2, 3])):
+        logits, st = lm.decode_step(params, cfg, st, toks[:, i],
+                                    torch.tensor(pos, device=dev))
+        outs.append(logits)
+    return [o.float().cpu() for o in outs]
+
+
+def phase_families_smoke(out: dict) -> None:
+    """Every family's smoke model in fp32, params from ``init_lm`` on a
+    CPU generator: the card against the CPU on the same params and
+    inputs, and a recurrentgemma decode that wraps its ring buffer."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("[family] cuda against cpu in fp32, "
+          "torch.backends.cuda.matmul.allow_tf32 = False")
+    for arch in FAMILIES:
+        cfg = get_smoke_config(arch)
+        p_cpu = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+        p_gpu = _tree_to(p_cpu, "cuda")
+        toks, extra = family_inputs(cfg, 2, 6, torch.Generator()
+                                    .manual_seed(1), 5, "cpu")
+        ref = family_logits(cfg, p_cpu, toks, extra)
+        ours = family_logits(cfg, p_gpu, toks.to("cuda"),
+                             _tree_to(extra, "cuda"))
+        err = max(max_abs_err(a, b) for a, b in zip(ours, ref))
+        print(f"[family] {arch} smoke (L={cfg.n_layers} d={cfg.d_model} "
+              f"{cfg.block_pattern}): forward, prefill, 3 decode steps "
+              f"(one per-row): max |cuda - cpu| {err!r} (atol "
+              f"{FAMILY_ATOL})")
+        require(err <= FAMILY_ATOL, f"{arch}: cuda vs cpu {err}")
+    # a ring of max_len 16 (the smoke window) decoded to position 23
+    cfg = get_smoke_config("recurrentgemma_2b")
+    p_cpu = lm.init_lm(torch.Generator().manual_seed(2), cfg)
+    p_gpu = _tree_to(p_cpu, "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(3))
+    states = {d: lm.init_decode_state(cfg, 2, 16, device=d)
+              for d in ("cpu", "cuda")}
+    ring = max(v["k"].shape[1] for v in states["cuda"]["layers"].values()
+               if "k" in v)
+    err = 0.0
+    for t in range(24):
+        logits = {}
+        for d, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            logits[d], states[d] = lm.decode_step(p, cfg, states[d],
+                                                  toks[:, t].to(d), t)
+        err = max(err, max_abs_err(logits["cuda"].cpu(), logits["cpu"]))
+    print(f"[family] recurrentgemma_2b smoke ring buffer: {ring} slots, "
+          f"24 decode steps (wraps at 16): max |cuda - cpu| {err!r}")
+    require(ring == 16 and err <= FAMILY_ATOL, f"ring decode: {err}")
+
+
+def model_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))
+
+
+def decode_timing(cfg, params, st, toks, pos, label: str) -> None:
+    """One full-width ``decode_step`` at B=4: CUDA events over 5 steps,
+    torch.profiler's device busy time and idle share over one."""
+    import torch
+
+    from repro_torch.models import lm
+    ms = cuda_ms(lambda: lm.decode_step(params, cfg, st, toks, pos), reps=5)
+    prof = profile_device(lambda: lm.decode_step(params, cfg, st, toks, pos))
+    idle = (1 - prof["busy_ms"] / prof["wall_ms"]) if prof["wall_ms"] \
+        else None
+    # what the step allocates (the per-call bf16 copies of the fp32
+    # weights, the activations) and the device time of its copy kernels
+    key = "allocated_bytes.all.allocated"
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_stats()[key]
+    lm.decode_step(params, cfg, st, toks, pos)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_stats()[key] - a0
+    copy_ms = sum(v for n, v in prof["by_name"].items()
+                  if "copy" in n.lower()) if prof["by_name"] else None
+    print(f"[family] {label} decode_step B={toks.shape[0]}: {ms!r} ms "
+          f"(CUDA events, mean of 5); device busy {prof['busy_ms']!r} ms "
+          f"of {prof['wall_ms']!r} ms, idle share {idle!r}; {alloc} bytes "
+          f"allocated per step; copy kernels {copy_ms!r} ms on the device")
+
+
+def decode_vs_forward(cfg, params, gen, label: str, rtol) -> None:
+    """prefill of 8 tokens, then 8 decode steps, against ``forward`` on
+    the same 16 tokens, in ``cfg.dtype``; the largest difference relative
+    to the largest |logit|, held to ``rtol`` (None: measured only)."""
+    import torch
+
+    from repro_torch.models import lm
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                         device="cuda")
+    full, _ = lm.forward(params, cfg, toks)
+    logits, st = lm.prefill(params, cfg, toks[:, :8], max_len=32)
+    steps = [logits]
+    for t in range(8, 16):
+        logits, st = lm.decode_step(params, cfg, st, toks[:, t], t)
+        steps.append(logits)
+    steps = torch.stack(steps, dim=1).float()
+    ref = full[:, 7:16].float()
+    scale = float(ref.abs().max())
+    rel = float((steps - ref).abs().max()) / scale
+    agree = float((steps.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"[family] {label} prefill(8) + 8 decode steps vs forward(16), "
+          f"{cfg.dtype}: max |diff| / max |logit| = {rel!r} (rtol "
+          f"{rtol!r}), max |logit| {scale!r}, argmax agreement {agree!r}")
+    require(rtol is None or rel <= rtol,
+            f"{label} {cfg.dtype}: decode vs forward {rel}")
+
+
+def stack_sensitivity(cfg, params, gen, label: str) -> None:
+    """How far the whole stack moves a relative input change of 2^-12:
+    the hidden state's largest change relative to its largest value, in
+    fp32 and in ``cfg.dtype``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+    toks = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                         device="cuda")
+    res = {}
+    for c in (dataclasses.replace(cfg, dtype=torch.float32), cfg):
+        x, pos = lm._embed_inputs(params, c, toks)
+        eps = (torch.randn(x.shape, generator=gen, device="cuda")
+               * float(x.abs().max()) * 2.0 ** -12).to(c.dtype)
+        h0, _ = lm._apply_stack(params["stack"], x, c, positions=pos)
+        h1, _ = lm._apply_stack(params["stack"], x + eps, c, positions=pos)
+        res[str(c.dtype)] = float((h1.float() - h0.float()).abs().max()
+                                  / h0.float().abs().max())
+    print(f"[family] {label} stack sensitivity: an input change of 2^-12 "
+          f"(relative) moves the hidden state by {res!r} (relative)")
+
+
+def block_decode_vs_forward(cfg, params, gen, label: str) -> None:
+    """Each kind of recurrent block of the stack on its own, in
+    ``cfg.dtype``: its full-sequence form on 16 inputs against 16
+    single-token decode steps from the zero state."""
+    import torch
+
+    from repro_torch.models import lm, recurrent
+    x = torch.randn((4, 16, cfg.d_model), generator=gen, device="cuda"
+                    ).to(cfg.dtype)
+    kinds = lm._stack_layout(cfg)
+    for kind in dict.fromkeys(cfg.block_pattern):
+        if kind == "attn":
+            continue
+        if kinds[0]:                          # scanned: group 0's block
+            i = cfg.block_pattern.index(kind)
+            mix = lm._index_tree(params["stack"]["scan"], 0)[f"p{i}"]["mix"]
+        else:
+            i = cfg.pattern_for_depth().index(kind)
+            mix = params["stack"][f"tail_{i}"]["mix"]
+        y = getattr(recurrent, f"{kind}_block")(mix, x, cfg)
+        init = getattr(recurrent, f"init_{kind}_state")
+        st = (init(cfg, 4, cfg.dtype, "cuda") if kind == "rglru"
+              else init(cfg, 4, "cuda"))
+        steps = []
+        for t in range(16):
+            yt, st = getattr(recurrent, f"{kind}_decode")(
+                mix, x[:, t:t + 1], cfg, st)
+            steps.append(yt)
+        rel = float((torch.cat(steps, 1).float() - y.float()).abs().max()
+                    / y.float().abs().max())
+        print(f"[family] {label} one {kind} block, 16 decode steps vs its "
+              f"forward, {cfg.dtype}: max |diff| / max |y| = {rel!r} (rtol "
+              f"{BLOCK_BF16_RTOL!r})")
+        require(rel <= BLOCK_BF16_RTOL, f"{label} {kind} block: {rel}")
+
+
+def moe_layer_check(cfg, params) -> None:
+    """One MoE layer of the full-width model in fp32 on the card against
+    the same layer on the CPU: at a decode batch (no drops) and a
+    prefill batch that drops tokens over capacity."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ffn = params["stack"]["tail_0"]["ffn"]
+    ffn_cpu = _tree_to(ffn, "cpu")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for B, S in ((4, 1), (4, 64)):
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+        if S > 1:
+            # tokens near one another pick the same experts: past capacity
+            x = x[:1, :1] + 0.05 * x
+        T = B * S
+        cap = moe._block_capacity(T, f32)
+        top = torch.topk(x.reshape(T, -1) @ ffn["router"],
+                         cfg.experts_per_token, dim=-1).indices
+        most = int(torch.bincount(top.reshape(-1),
+                                  minlength=cfg.n_experts).max())
+        dropped = int(torch.clamp(torch.bincount(
+            top.reshape(-1), minlength=cfg.n_experts) - cap, min=0).sum())
+        y = moe.moe(ffn, x, f32).cpu()
+        y_cpu = moe.moe(ffn_cpu, x.cpu(), f32)
+        err = max_abs_err(y, y_cpu)
+        print(f"[family] {cfg.name} MoE layer fp32 T={T}: capacity {cap}, "
+              f"most tokens on one expert {most}, dropped {dropped}; max "
+              f"|cuda - cpu| {err!r} (atol {MOE_LAYER_ATOL}), max |y| "
+              f"{float(y_cpu.abs().max())!r}")
+        require(err <= MOE_LAYER_ATOL, f"MoE layer T={T}: {err}")
+        require((dropped > 0) == (S > 1), f"MoE layer T={T}: {dropped} "
+                f"tokens dropped")
+
+
+# (arch, overrides, the cut as printed)
+FULL_WIDTH = [
+    ("recurrentgemma_2b", dict(scan_layers=False),
+     "whole: 26 layers, uncut; unscanned for the serving engine"),
+    ("xlstm_1_3b", {}, "whole: 48 layers in 6 scanned groups of 8, "
+     "d_ff=0, uncut"),
+    ("seamless_m4t_medium", {}, "whole: 12 encoder + 12 decoder layers, "
+     "uncut; encode 32 frames per row"),
+    ("pixtral_12b", dict(n_layers=8, scan_layers=False),
+     "8 of 40 layers; 256 prefix embeds per row"),
+    ("llama4_scout_17b_a16e", dict(n_layers=4, scan_layers=False),
+     "4 of 48 layers, all 16 experts at d 5120 / d_ff 8192, top-1"),
+]
+
+
+def phase_families_full(out: dict) -> None:
+    """Each family at full width with random weights from a seeded
+    generator on the card, one model at a time (freed before the next):
+    parameter count, bytes on the card, one B=4 decode_step by CUDA
+    events and its device idle share by torch.profiler, and the family's
+    consistency checks; recurrentgemma_2b then serves (phase 9)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    for arch, over, cut in FULL_WIDTH:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), **over)
+        params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params))
+        print(f"[family] {arch} at full width ({cut}): L={cfg.n_layers} "
+              f"d={cfg.d_model} H={cfg.n_heads}/{cfg.n_kv_heads} "
+              f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+              f"experts={cfg.n_experts} dtype={cfg.dtype}: {n_params} "
+              f"params, {model_bytes(params)} bytes of params, "
+              f"{torch.cuda.memory_allocated()} bytes allocated on the card")
+        if cfg.family in ("hybrid", "ssm"):
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            block_decode_vs_forward(cfg, params, gen, arch)
+            stack_sensitivity(cfg, params, gen, arch)
+            if arch == "xlstm_1_3b":
+                f32 = dataclasses.replace(cfg, dtype=torch.float32)
+                decode_vs_forward(f32, params, gen, arch,
+                                  XLSTM_FP32_PATH_RTOL)
+                # the whole stack in bf16: measured, not held (above)
+                decode_vs_forward(cfg, params, gen, arch, None)
+            else:
+                decode_vs_forward(cfg, params, gen, arch, BF16_PATH_RTOL)
+        if cfg.n_experts:
+            moe_layer_check(cfg, params)
+        toks, extra = family_inputs(cfg, 4, 8, torch.Generator(
+            device="cuda").manual_seed(7), 32, "cuda")
+        n = toks.shape[1] + cfg.n_prefix_embeds
+        logits, st = lm.prefill(params, cfg, toks, max_len=n + 16, **extra)
+        torch.cuda.synchronize()
+        require(logits.shape == (4, cfg.vocab_size)
+                and bool(torch.isfinite(logits).all()),
+                f"{arch}: prefill logits {tuple(logits.shape)}")
+        if cfg.is_encdec:
+            require(st["enc_out"].shape == (4, 32, cfg.d_model),
+                    f"{arch}: enc_out {tuple(st['enc_out'].shape)}")
+        nxt = logits.argmax(-1)
+        decode_timing(cfg, params, st, nxt, n, arch)
+        logits, st = lm.decode_step(params, cfg, st, nxt, n)
+        require(bool(torch.isfinite(logits).all()), f"{arch}: decode")
+        del st, logits
+        if arch == "recurrentgemma_2b":
+            phase_serving_recurrentgemma(cfg, params, out)
+        del params
+        torch.cuda.empty_cache()
+        print(f"[family] {arch} done in {time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated()} bytes still allocated")
+
+
+def phase_serving_recurrentgemma(cfg, params, out: dict) -> None:
+    """Phase 3: recurrentgemma_2b at full width through
+    ``api.engine("gpu-pool")`` (52 FFN matrices per migration, int8 tiers
+    on ``pim_mac`` at K=2560), its int8 tiers bitwise to the CPU, then
+    ``DecodeEngine``, and ``pim_mac`` timed L2-cold at the widest int8
+    tier."""
+    import torch
+
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.kernels.pim_mac.ref import pim_matmul_ref
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((16, cfg.d_model), generator=gen, device="cuda")
+    run = serve_slices(cfg, params, x, cfg.name)
+    require(len(run["engine"]._tiered) == 52, "recurrentgemma: not 52 "
+            "matrices tiered")
+    out["pim_launches_rg"] = run["launches"]
+    del run["engine"]
+    decode_engine_run(cfg, params, cfg.name)
+    K = cfg.d_model
+    widths = run["int8_widths"] or [cfg.d_ff]
+    for N in widths:
+        xq, (w,), sx, sw = pim_inputs(gen, 16, K, N)
+        for od in (torch.float32, torch.bfloat16):
+            require(torch.equal(pim_matmul(xq, w, sx, sw, out_dtype=od),
+                                pim_matmul_ref(xq, w, sx, sw, od)),
+                    f"pim_mac 16x{K}x{N} {od} != plain")
+    print(f"[parity] pim_mac M=16 K={K} N={widths}: fp32 and bf16 equal")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = pim_time_row(gen, 16, K, max(widths), sms)
+    out["pim_time_rg"] = dict(row, M=16, K=K, N=max(widths))
+    print(f"[serve] recurrentgemma_2b serving phase: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def timed(label: str, fn, *args) -> None:
+    t0 = time.perf_counter()
+    fn(*args)
+    print(f"[phase] {label}: {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1057,19 +1506,25 @@ def main() -> int:
         from repro_torch.configs import get_config
         cfg = get_config("internlm2_1_8b")
 
-        phase_build(out)
+        timed("build", phase_build, out)
         grid = grid_inputs("gpu-pool", cfg)
         cxl = grid_inputs("cxl-tier-3", cfg)
         cases = {"gpu-pool grid": grid, "cxl-tier-3 grid": cxl,
                  "edge-baseline C=1": edge_inputs(),
                  "synthetic C=5": synthetic_c5_inputs()}
-        phase_parity(cases, out)
-        phase_main_path(cfg, out)
-        phase_timing(grid, cxl, cases["synthetic C=5"], out)
+        timed("parity", phase_parity, cases, out)
+        timed("placement main path", phase_main_path, cfg, out)
+        timed("placement timing", phase_timing, grid, cxl,
+              cases["synthetic C=5"], out)
         scfg = serve_config()
-        phase_serving(scfg, out)
-        phase_pim(out)
-        phase_serve_timing(scfg, out)
+        timed("serving internlm2_1_8b", phase_serving, scfg, out)
+        timed("pim_mac", phase_pim, out)
+        timed("serving timing", phase_serve_timing, scfg, out)
+        for key in ("engine", "x", "placements"):
+            out.pop(key)
+        torch.cuda.empty_cache()
+        timed("families smoke", phase_families_smoke, out)
+        timed("families full width", phase_families_full, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1096,8 +1551,12 @@ def main() -> int:
              source="src/repro_torch/csrc/pim_mac.cu",
              replaces="src/repro/kernels/pim_mac/kernel.py:25 "
                       "(_pim_mac_kernel)",
-             launches=out["pim_launches"],
+             launches=out["pim_launches"] + out["pim_launches_rg"],
+             launches_by_path={
+                 "internlm2_1_8b serving": out["pim_launches"],
+                 "recurrentgemma_2b serving": out["pim_launches_rg"]},
              max_abs_err=out["max_abs_err"]["pim_mac"],
+             at_recurrentgemma_shape=out["pim_time_rg"],
              **out["pim_time"]),
     ]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")

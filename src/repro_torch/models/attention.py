@@ -1,16 +1,17 @@
-"""Grouped-query attention with RoPE variants and a KV cache - the dense
-family's full causal attention. Pure functions over explicit param dicts,
+"""Grouped-query attention with RoPE variants, local windows, KV caches and
+encoder-decoder cross attention. Pure functions over explicit param dicts,
 in the JAX package's (B, S, H, hd) layout.
 
 The attention product is plain tensor code (no fused attention call), as
-the JAX package has no attention kernel. Local (windowed) attention, encoder
-attention and cross attention belong to families not ported yet and raise
-``NotImplementedError``.
+the JAX package has no attention kernel. Local attention keeps a ring
+buffer of ``local_window`` slots in decode; long sequences take the
+chunked paths (flash-style online softmax for full and encoder/cross
+attention, exact window slicing for local attention).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,14 +20,6 @@ from repro_torch.models.common import ModelConfig, apply_rope, dense_init
 KVCache = Dict[str, torch.Tensor]   # {"k": (B,S,KV,hd), "v": ...}
 
 NEG = -1e30
-
-
-def _require_full_attention(cfg: ModelConfig) -> None:
-    if cfg.attn_kind != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attn_kind} (windowed) attention belongs to "
-            f"the hybrid family (recurrentgemma_2b), which is not ported "
-            f"yet")
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig
@@ -80,11 +73,15 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     return out.reshape(B, Sq, H * hd)
 
 
-def _causal_mask(Sq: int, Sk: int, device=None) -> torch.Tensor:
-    """(1,1,1,Sq,Sk) boolean causal mask."""
+def _causal_mask(Sq: int, Sk: int, window: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """(1,1,1,Sq,Sk) boolean mask; window => local (sliding) attention."""
     qpos = torch.arange(Sq, device=device)[:, None] + (Sk - Sq)
     kpos = torch.arange(Sk, device=device)[None, :]
-    return (kpos <= qpos)[None, None, None]
+    m = kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m[None, None, None]
 
 
 # sequences at or above this length take the O(S)-memory chunked path
@@ -94,12 +91,13 @@ K_CHUNK = 512   # == Q_CHUNK so the causal diagonal is a single chunk pair
 
 
 def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
-                         k_chunk: int):
-    """Flash-style online-softmax causal attention, O(S) memory.
+                         k_chunk: int, causal: bool = True):
+    """Flash-style online-softmax attention, O(S) memory.
 
     Loops over query chunks and, inside, key chunks with running (max,
-    denom, acc) carries in fp32. Handles GQA. The JAX package scans every
-    key chunk and masks the pairs above the diagonal with -1e30; those
+    denom, acc) carries in fp32. Handles causal (Sq == Sk) and
+    bidirectional attention, and GQA. The JAX package scans every key
+    chunk and masks the causal pairs above the diagonal with -1e30; those
     pairs leave the carries unchanged bit for bit (their probabilities
     are exp(-1e30 - m) = 0 and their correction exp(0) = 1), so they are
     skipped here.
@@ -108,15 +106,16 @@ def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
         raise ValueError("the causal diagonal needs q_chunk == k_chunk")
     c = q_chunk
     B, Sq, H, hd = q.shape
-    if k.shape[1] != Sq:
+    Sk = k.shape[1]
+    if causal and Sk != Sq:
         raise ValueError("causal chunked attention needs Sq == Sk")
     KV = k.shape[2]
     g = H // KV
-    nq = Sq // c
+    nq, n = Sq // c, Sk // c
     dev = q.device
     qc = q.reshape(B, nq, c, KV, g, hd).permute(1, 0, 3, 4, 2, 5).float()
-    kc = k.reshape(B, nq, c, KV, hd).permute(1, 0, 3, 2, 4).float()
-    vc = v.reshape(B, nq, c, KV, hd).permute(1, 0, 3, 2, 4).float()
+    kc = k.reshape(B, n, c, KV, hd).permute(1, 0, 3, 2, 4).float()
+    vc = v.reshape(B, n, c, KV, hd).permute(1, 0, 3, 2, 4).float()
     scale = 1.0 / math.sqrt(hd)
     # the diagonal pair's additive triangular mask
     ar = torch.arange(c, device=dev)
@@ -128,9 +127,9 @@ def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
         denom = torch.zeros((B, KV, g, c), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, KV, g, c, hd), dtype=torch.float32,
                           device=dev)
-        for jk in range(iq + 1):
+        for jk in range(iq + 1 if causal else n):
             s = torch.einsum("bkgqh,bksh->bkgqs", qi, kc[jk]) * scale
-            if jk == iq:
+            if causal and jk == iq:
                 s = s + tri
             m_new = torch.maximum(m, s.amax(dim=-1))
             p_ = torch.exp(s - m_new[..., None])
@@ -145,30 +144,95 @@ def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
     return out.to(q.dtype)
 
 
+def _local_windowed_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int):
+    """Sliding-window attention: per q-chunk, attend to the preceding
+    ``window`` keys only - O(S * window) compute, exact."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    W = cfg.local_window
+    nq = S // q_chunk
+    span = W + q_chunk
+    dev = q.device
+    # left-pad keys so every chunk slices a fixed [span] window
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, W, 0)).float()
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, W, 0)).float()
+    scale = 1.0 / math.sqrt(hd)
+    qc = q.reshape(B, nq, q_chunk, KV, g, hd).permute(1, 0, 3, 4, 2, 5)
+    # chunk-invariant window mask: the offset k - q = (kk - W) - qq is the
+    # same for every chunk; only the left boundary (k_pos >= 0) varies
+    qq = torch.arange(q_chunk, device=dev)[:, None]
+    kk = torch.arange(span, device=dev)[None, :]
+    rel = (kk - W) - qq
+    win_mask = torch.where((rel <= 0) & (rel > -W), 0.0, NEG).float()
+    outs = []
+    for iq in range(nq):
+        start = iq * q_chunk
+        kj = kp[:, start:start + span].transpose(1, 2)   # (B,KV,span,hd)
+        vj = vp[:, start:start + span].transpose(1, 2)
+        s = torch.einsum("bkgqh,bksh->bkgqs", qc[iq].float(), kj) * scale
+        valid = torch.where(start - W + torch.arange(span, device=dev) >= 0,
+                            0.0, NEG).float()
+        s = s + win_mask + valid[None, :]
+        p_ = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bkgqs,bksh->bkgqh", p_, vj))
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H * hd)
+    return out.to(q.dtype)
+
+
 def attention(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
-    """Full-sequence (training / prefill) causal self attention; long
-    sequences take the O(S)-memory chunked path."""
-    _require_full_attention(cfg)
+    """Full-sequence (training / prefill) self attention.
+
+    Long sequences use the O(S)-memory chunked path (flash-style online
+    softmax for causal-full, exact windowed slicing for local attention).
+    """
     q, k, v = _project_qkv(p, x, cfg, positions)
     S = x.shape[1]
+    local = cfg.attn_kind == "local"
+    window = cfg.local_window if local else None
     if S >= CHUNKED_ATTN_THRESHOLD and S % Q_CHUNK == 0 \
-            and S % K_CHUNK == 0:
-        out = _chunked_causal_sdpa(q, k, v, cfg, Q_CHUNK, K_CHUNK)
+            and S % K_CHUNK == 0 and (not local or cfg.local_window < S):
+        if local:
+            out = _local_windowed_sdpa(q, k, v, cfg, Q_CHUNK)
+        else:
+            out = _chunked_causal_sdpa(q, k, v, cfg, Q_CHUNK, K_CHUNK)
     else:
-        out = _sdpa(q, k, v, _causal_mask(S, S, device=x.device), cfg)
+        out = _sdpa(q, k, v, _causal_mask(S, S, window, device=x.device),
+                    cfg)
     return out @ p["wo"].to(x.dtype)
 
 
-def encoder_attention(p, x, cfg: ModelConfig, positions):
-    raise NotImplementedError(
-        "encoder attention belongs to the encoder-decoder family "
-        "(seamless_m4t_medium), which is not ported yet")
+def _unmasked_sdpa(q, k, v, cfg: ModelConfig):
+    """Bidirectional attention (encoder self attention, cross attention):
+    the non-causal chunked path once either sequence is long."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if (max(Sq, Sk) >= CHUNKED_ATTN_THRESHOLD and Sq % Q_CHUNK == 0
+            and Sk % K_CHUNK == 0):
+        return _chunked_causal_sdpa(q, k, v, cfg, Q_CHUNK, K_CHUNK,
+                                    causal=False)
+    return _sdpa(q, k, v, None, cfg)
 
 
-def cross_attention(p, x, enc_out, cfg: ModelConfig):
-    raise NotImplementedError(
-        "cross attention belongs to the encoder-decoder family "
-        "(seamless_m4t_medium), which is not ported yet")
+def encoder_attention(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Bidirectional self-attention (encoder side)."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return _unmasked_sdpa(q, k, v, cfg) @ p["wo"].to(x.dtype)
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig
+                         ) -> Dict[str, torch.Tensor]:
+    return init_attention(gen, cfg)
+
+
+def cross_attention(p, x, enc_out, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross attention over encoder outputs (no RoPE, no mask)."""
+    B, Sq, _ = x.shape
+    Sk = enc_out.shape[1]
+    hd = cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, Sq, cfg.n_heads, hd)
+    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, Sk, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, Sk, cfg.n_kv_heads, hd)
+    return _unmasked_sdpa(q, k, v, cfg) @ p["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +242,8 @@ def cross_attention(p, x, enc_out, cfg: ModelConfig):
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device=None) -> KVCache:
-    _require_full_attention(cfg)
+    if cfg.attn_kind == "local":
+        max_len = min(max_len, cfg.local_window)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -190,12 +255,12 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
     position(s) - a vector gives every batch row its own position (slot
     continuous batching, where requests start at different times).
 
-    Full attention appends at ``pos``. The cache is written IN PLACE
-    (``index_copy_`` / ``index_put_``) where the JAX package selects a
-    new cache with ``where``: the values are the same, and the returned
-    cache holds the same tensors as ``cache``.
+    Local attention uses a ring buffer of size ``local_window``; full
+    attention appends at ``pos``. Both write slot ``pos % C``. The cache
+    is written IN PLACE (``index_copy_`` / ``index_put_``) where the JAX
+    package selects a new cache with ``where``: the values are the same,
+    and the returned cache holds the same tensors as ``cache``.
     """
-    _require_full_attention(cfg)
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long()
     per_row = pos.ndim == 1
@@ -210,12 +275,22 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
     else:
         cache["k"].index_copy_(1, slot.view(1), k.to(cache["k"].dtype))
         cache["v"].index_copy_(1, slot.view(1), v.to(cache["v"].dtype))
-    # valid = entries written so far
+    # valid = entries written so far and (for local) within the window;
+    # a full ring buffer is all valid
     idx = torch.arange(C, device=x.device)
-    if per_row:
-        mask = (idx[None, :] <= pos[:, None])[:, None, None, None, :]
+    if cfg.attn_kind == "local":
+        if per_row:
+            valid = (idx[None, :] <= slot[:, None]) | (pos[:, None] >= C)
+        else:
+            valid = (idx <= slot) | (pos >= C)
     else:
-        mask = (idx <= pos)[None, None, None, None, :]
+        valid = idx[None, :] <= pos[:, None] if per_row else idx <= pos
+    mask = (valid[:, None, None, None, :] if per_row
+            else valid[None, None, None, None, :])
     out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
     out = out @ p["wo"].to(x.dtype)
     return out, {"k": cache["k"], "v": cache["v"]}
+
+
+def cross_attention_decode(p, x, enc_out, cfg: ModelConfig) -> torch.Tensor:
+    return cross_attention(p, x, enc_out, cfg)

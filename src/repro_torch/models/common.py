@@ -1,9 +1,9 @@
 """Model configuration and shared building blocks for the architecture zoo.
 
-The numerics helpers (``rms_norm``, RoPE, ``dense_init``) serve the
-dense family of :mod:`repro_torch.models.lm`. The JAX package's sharding
-hints (``replicate_for_gather``, ``shard_activations``) are no-ops on one
-card and wait for the parallel slice.
+The numerics helpers (``rms_norm``, RoPE, ``dense_init``) serve every
+family of :mod:`repro_torch.models.lm`. The JAX package's sharding hints
+(``replicate_for_gather``, ``shard_activations``) are no-ops on one card
+and wait for the parallel slice.
 """
 from __future__ import annotations
 

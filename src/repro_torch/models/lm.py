@@ -1,22 +1,28 @@
-"""Decoder language models of the dense family, assembled from the block
-zoo: GQA attention (full causal, RoPE "full"/"2d", optional QKV bias) and
-a SwiGLU / GeGLU / GELU MLP.
+"""Full language models assembled from the block zoo, for every
+architecture family of the registry:
+  dense / moe decoder LMs (GQA attention + [Swi/Ge]GLU or MoE FFN),
+  hybrid stacks (RG-LRU + local attention, RecurrentGemma-style),
+  ssm stacks (mLSTM/sLSTM, xLSTM-style),
+  encoder-decoder (Seamless-style; frame-embedding frontend stub),
+  vlm (Pixtral-style; patch-embedding frontend stub prepended to text).
 
 The param and decode-state trees keep the JAX package's layout exactly:
-``{"embed", "final_ln", "stack", ["lm_head"]}`` with ``stack`` holding a
-``"scan"`` group (every leaf with a leading group axis, looped over in
-Python here) and/or unscanned ``"tail_i"`` blocks, as
-``_stack_layout`` decides. ``cfg.scan_layers`` therefore picks the tree
-layout only; ``cfg.remat`` has no effect (both are XLA compile switches).
-Code that walks the trees (the serve engine's re-tiering, the decode
-engine's state scatter) sees the same keys as in the JAX package.
+``{"embed", "final_ln", "stack", ["encoder", "enc_final_ln"],
+["lm_head"]}`` with each stack holding a ``"scan"`` group (one
+``p{i}`` block per kind of the period, every leaf with a leading group
+axis, looped over in Python here) and/or unscanned ``"tail_i"`` blocks,
+as ``_stack_layout`` decides. ``cfg.scan_layers`` therefore picks the
+tree layout only; ``cfg.remat`` has no effect (both are XLA compile
+switches). Code that walks the trees (the serve engine's re-tiering, the
+decode engine's state scatter) sees the same keys as in the JAX package.
 
 :func:`params_from_numpy` carries a JAX param tree (numpy leaves) over,
-so both packages can run the same weights. The MoE, hybrid, ssm,
-encoder-decoder and VLM families raise ``NotImplementedError``.
+so both packages can run the same weights. Training (``loss_fn``) is not
+ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -25,21 +31,12 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
 from repro_torch.models.mlp import init_mlp_cfg, mlp_cfg
 
 PyTree = Any
-
-_ATTN_KEYS = {"wq", "wk", "wv", "wo", "bq", "bk", "bv"}
-
-
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.n_experts or cfg.is_encdec
-            or cfg.n_prefix_embeds or set(cfg.block_pattern) != {"attn"}):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port runs the dense family (attention + MLP blocks)")
-    attn_lib._require_full_attention(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -47,32 +44,106 @@ def _require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    if kind in ("mlstm", "slstm"):
+        return cfg.d_ff > 0
+    return True
+
+
+def _is_moe(cfg: ModelConfig, kind: str) -> bool:
+    return bool(cfg.n_experts) and kind == "attn"
+
+
+_INIT_MIX = {"attn": attn_lib.init_attention, "rglru": rec_lib.init_rglru,
+             "mlstm": rec_lib.init_mlstm, "slstm": rec_lib.init_slstm}
+_APPLY_MIX = {"rglru": rec_lib.rglru_block, "mlstm": rec_lib.mlstm_block,
+              "slstm": rec_lib.slstm_block}
+_DECODE_MIX = {"rglru": rec_lib.rglru_decode,
+               "mlstm": rec_lib.mlstm_decode,
+               "slstm": rec_lib.slstm_decode}
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               cross: bool = False) -> PyTree:
+    if kind not in _INIT_MIX:
+        raise ValueError(kind)
     dev = gen.device
-    return {
+    p: Dict[str, PyTree] = {
         "ln1": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
-        "mix": attn_lib.init_attention(gen, cfg),
-        "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
-        "ffn": init_mlp_cfg(gen, cfg),
-    }
+        "mix": _INIT_MIX[kind](gen, cfg)}
+    if cross:
+        p["ln_cross"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                    device=dev)
+        p["cross"] = attn_lib.init_cross_attention(gen, cfg)
+    if _has_ffn(cfg, kind):
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
+                               device=dev)
+        p["ffn"] = (moe_lib.init_moe(gen, cfg) if _is_moe(cfg, kind)
+                    else init_mlp_cfg(gen, cfg))
+    return p
 
 
-def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
-                positions) -> torch.Tensor:
-    """Full-sequence block application."""
-    x = x + attn_lib.attention(p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                               cfg, positions)
-    return x + mlp_cfg(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
+                positions, enc_out=None, causal: bool = True
+                ) -> Tuple[torch.Tensor, Any]:
+    """Full-sequence block application. Returns (x, aux_loss); aux_loss is
+    0.0 for a block without an MoE FFN."""
+    aux = 0.0
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        h = (attn_lib.attention(p["mix"], h, cfg, positions) if causal
+             else attn_lib.encoder_attention(p["mix"], h, cfg, positions))
+    else:
+        h = _APPLY_MIX[kind](p["mix"], h, cfg)
+    x = x + h
+    if "cross" in p:
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn_lib.cross_attention(p["cross"], h, enc_out, cfg)
+    if "ffn" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if _is_moe(cfg, kind):
+            aux = moe_lib.aux_load_balance_loss(p["ffn"], h, cfg)
+            h = moe_lib.moe(p["ffn"], h, cfg)
+        else:
+            h = mlp_cfg(p["ffn"], h, cfg)
+        x = x + h
+    return x, aux
 
 
 def apply_block_decode(p: PyTree, x: torch.Tensor, cfg: ModelConfig,
-                       state: PyTree, *, pos) -> Tuple[torch.Tensor, PyTree]:
-    """One-token block application with its KV cache (written in place)."""
-    h, new_state = attn_lib.attention_decode(
-        p["mix"], rms_norm(x, p["ln1"], cfg.norm_eps), cfg, state, pos)
+                       kind: str, state: PyTree, *, pos, enc_out=None
+                       ) -> Tuple[torch.Tensor, PyTree]:
+    """One-token block application with recurrent/KV state (a KV cache is
+    written in place, a recurrent state returned anew)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "attn":
+        h, new_state = attn_lib.attention_decode(p["mix"], h, cfg, state,
+                                                 pos)
+    else:
+        h, new_state = _DECODE_MIX[kind](p["mix"], h, cfg, state)
     x = x + h
-    x = x + mlp_cfg(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    if "cross" in p:
+        h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn_lib.cross_attention_decode(p["cross"], h, enc_out, cfg)
+    if "ffn" in p:
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = (moe_lib.moe(p["ffn"], h, cfg) if _is_moe(cfg, kind)
+             else mlp_cfg(p["ffn"], h, cfg))
+        x = x + h
     return x, new_state
+
+
+def init_block_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     dtype, device) -> PyTree:
+    if kind == "attn":
+        return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)
+    if kind == "rglru":
+        return rec_lib.init_rglru_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return rec_lib.init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return rec_lib.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -108,28 +179,45 @@ def _index_tree(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
-def _init_stack(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
+def _write_back(views: PyTree, new: PyTree) -> None:
+    """Copy a group's new state into its views of the stacked leaves,
+    where the block returned new tensors (recurrent state) rather than
+    writing the views in place (KV caches)."""
+    if isinstance(views, dict):
+        for k in views:
+            _write_back(views[k], new[k])
+    elif new is not views:
+        views.copy_(new)
+
+
+def _init_stack(gen: torch.Generator, cfg: ModelConfig,
+                cross: bool) -> PyTree:
     n_groups, period, tail = _stack_layout(cfg)
     out: Dict[str, PyTree] = {}
     if n_groups:
         out["scan"] = _stack_trees([
-            {f"p{i}": init_block(gen, cfg) for i in range(len(period))}
+            {f"p{i}": init_block(gen, cfg, kind, cross)
+             for i, kind in enumerate(period)}
             for _ in range(n_groups)])
-    for i in range(len(tail)):
-        out[f"tail_{i}"] = init_block(gen, cfg)
+    for i, kind in enumerate(tail):
+        out[f"tail_{i}"] = init_block(gen, cfg, kind, cross)
     return out
 
 
 def _apply_stack(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
-                 positions) -> torch.Tensor:
+                 positions, enc_out=None, causal=True
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, the blocks' summed aux loss as an fp32 scalar)."""
     n_groups, period, tail = _stack_layout(cfg)
-    for gi in range(n_groups):
-        gparams = _index_tree(params["scan"], gi)
-        for i in range(len(period)):
-            x = apply_block(gparams[f"p{i}"], x, cfg, positions=positions)
-    for i in range(len(tail)):
-        x = apply_block(params[f"tail_{i}"], x, cfg, positions=positions)
-    return x
+    blocks = [(_index_tree(params["scan"], gi)[f"p{i}"], kind)
+              for gi in range(n_groups) for i, kind in enumerate(period)]
+    blocks += [(params[f"tail_{i}"], kind) for i, kind in enumerate(tail)]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, kind in blocks:
+        x, a = apply_block(blk, x, cfg, kind, positions=positions,
+                           enc_out=enc_out, causal=causal)
+        aux_total = aux_total + a
+    return x, aux_total
 
 
 def _init_stack_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -138,34 +226,38 @@ def _init_stack_state(cfg: ModelConfig, batch: int, max_len: int, dtype,
     out: Dict[str, PyTree] = {}
     if n_groups:
         out["scan"] = _stack_trees([
-            {f"p{i}": attn_lib.init_kv_cache(cfg, batch, max_len, dtype,
-                                             device)
-             for i in range(len(period))}
+            {f"p{i}": init_block_state(cfg, kind, batch, max_len, dtype,
+                                       device)
+             for i, kind in enumerate(period)}
             for _ in range(n_groups)])
-    for i in range(len(tail)):
-        out[f"tail_{i}"] = attn_lib.init_kv_cache(cfg, batch, max_len,
-                                                  dtype, device)
+    for i, kind in enumerate(tail):
+        out[f"tail_{i}"] = init_block_state(cfg, kind, batch, max_len,
+                                            dtype, device)
     return out
 
 
 def _apply_stack_decode(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
-                        state: PyTree, *, pos
+                        state: PyTree, *, pos, enc_out=None
                         ) -> Tuple[torch.Tensor, PyTree]:
     n_groups, period, tail = _stack_layout(cfg)
     new_state: Dict[str, PyTree] = {}
     if n_groups:
-        # every group's cache is a view of the stacked leaves, which the
-        # in-place cache writes update: the stacked tree is the new state
+        # every group's state is a view of the stacked leaves: KV caches
+        # are written in place, recurrent states copied back, so the
+        # stacked tree is the new state
         for gi in range(n_groups):
             gparams = _index_tree(params["scan"], gi)
             gstate = _index_tree(state["scan"], gi)
-            for i in range(len(period)):
-                x, _ = apply_block_decode(gparams[f"p{i}"], x, cfg,
-                                          gstate[f"p{i}"], pos=pos)
+            for i, kind in enumerate(period):
+                x, s = apply_block_decode(gparams[f"p{i}"], x, cfg, kind,
+                                          gstate[f"p{i}"], pos=pos,
+                                          enc_out=enc_out)
+                _write_back(gstate[f"p{i}"], s)
         new_state["scan"] = state["scan"]
-    for i in range(len(tail)):
+    for i, kind in enumerate(tail):
         x, new_state[f"tail_{i}"] = apply_block_decode(
-            params[f"tail_{i}"], x, cfg, state[f"tail_{i}"], pos=pos)
+            params[f"tail_{i}"], x, cfg, kind, state[f"tail_{i}"], pos=pos,
+            enc_out=enc_out)
     return x, new_state
 
 
@@ -176,36 +268,25 @@ def _apply_stack_decode(params: PyTree, x: torch.Tensor, cfg: ModelConfig,
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> PyTree:
     """Random fp32 params on ``gen``'s device, drawn from ``gen``."""
-    _require_dense(cfg)
+    dev = gen.device
     params: Dict[str, PyTree] = {
         "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), in_axis=1),
         "final_ln": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                device=gen.device),
-        "stack": _init_stack(gen, cfg),
+                                device=dev),
+        "stack": _init_stack(gen, cfg, cross=cfg.is_encdec),
     }
+    if cfg.is_encdec:
+        params["encoder"] = _init_stack(gen, _enc_cfg(cfg), cross=False)
+        params["enc_final_ln"] = torch.zeros((cfg.d_model,),
+                                             dtype=torch.float32, device=dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size))
     return params
 
 
-def _check_dense_tree(tree: PyTree) -> None:
-    if "encoder" in tree:
-        raise NotImplementedError("encoder-decoder params: the family is "
-                                  "not ported yet")
-    for entry in tree["stack"].values():
-        blocks = entry.values() if "ln1" not in entry else [entry]
-        for blk in blocks:
-            if "cross" in blk:
-                raise NotImplementedError("cross-attention params: the "
-                                          "encoder-decoder family is not "
-                                          "ported yet")
-            if not set(blk["mix"]) <= _ATTN_KEYS:
-                raise NotImplementedError("recurrent mixer params: the "
-                                          "hybrid/ssm families are not "
-                                          "ported yet")
-            if "router" in blk.get("ffn", {}):
-                raise NotImplementedError("MoE params: the moe family is "
-                                          "not ported yet")
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, n_layers=cfg.n_encoder_layers,
+                               n_experts=0, block_pattern=("attn",))
 
 
 def params_from_numpy(tree: PyTree, device=DEFAULT_DEVICE) -> PyTree:
@@ -213,7 +294,6 @@ def params_from_numpy(tree: PyTree, device=DEFAULT_DEVICE) -> PyTree:
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's: the
     same keys, torch tensors on ``device``."""
     dev = resolve_device(device)
-    _check_dense_tree(tree)
 
     def conv(t):
         if isinstance(t, dict):
@@ -222,9 +302,13 @@ def params_from_numpy(tree: PyTree, device=DEFAULT_DEVICE) -> PyTree:
     return conv(tree)
 
 
-def _embed_inputs(params, cfg: ModelConfig, tokens):
+def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """Token embedding (+ optional prepended modality embeddings); the
+    positions count the prefix."""
     # gather, then cast: the same values as casting the whole table first
     x = params["embed"][tokens].to(cfg.dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     return x, positions
@@ -237,34 +321,53 @@ def _lm_logits(params, cfg: ModelConfig, x) -> torch.Tensor:
     return x @ head
 
 
-def forward(params, cfg: ModelConfig, tokens
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training/prefill forward. Returns (logits, aux_loss); the dense
-    family's aux loss is 0."""
-    _require_dense(cfg)
-    x, positions = _embed_inputs(params, cfg, tokens)
-    x = _apply_stack(params["stack"], x, cfg, positions=positions)
-    return _lm_logits(params, cfg, x), torch.zeros((), device=x.device)
+def encode(params, cfg: ModelConfig, enc_frames) -> torch.Tensor:
+    """Encoder for enc-dec models; enc_frames: (B, Se, d) frontend stub."""
+    ec = _enc_cfg(cfg)
+    B, Se, _ = enc_frames.shape
+    positions = torch.arange(Se, device=enc_frames.device).expand(B, Se)
+    x, _ = _apply_stack(params["encoder"], enc_frames.to(cfg.dtype), ec,
+                        positions=positions, causal=False)
+    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _forward_stack(params, cfg: ModelConfig, tokens, prefix_embeds,
+                   enc_frames) -> Tuple[torch.Tensor, torch.Tensor]:
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: pass "
+                             f"enc_frames")
+        enc_out = encode(params, cfg, enc_frames)
+    x, positions = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    return _apply_stack(params["stack"], x, cfg, positions=positions,
+                        enc_out=enc_out, causal=True)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+            enc_frames=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill forward. Returns (logits, aux_loss)."""
+    x, aux = _forward_stack(params, cfg, tokens, prefix_embeds, enc_frames)
+    return _lm_logits(params, cfg, x), aux
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
+                   enc_frames=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like forward() but stops at the final norm (no vocab projection)."""
-    _require_dense(cfg)
-    x, positions = _embed_inputs(params, cfg, tokens)
-    x = _apply_stack(params["stack"], x, cfg, positions=positions)
-    return (rms_norm(x, params["final_ln"], cfg.norm_eps),
-            torch.zeros((), device=x.device))
+    x, aux = _forward_stack(params, cfg, tokens, prefix_embeds, enc_frames)
+    return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
 
 
 # -- decode -----------------------------------------------------------------
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device=DEFAULT_DEVICE) -> PyTree:
-    _require_dense(cfg)
-    return {"layers": _init_stack_state(cfg, batch, max_len, cfg.dtype,
-                                        resolve_device(device))}
+                      enc_out=None, device=DEFAULT_DEVICE) -> PyTree:
+    state = {"layers": _init_stack_state(cfg, batch, max_len, cfg.dtype,
+                                         resolve_device(device))}
+    if cfg.is_encdec:
+        state["enc_out"] = enc_out
+    return state
 
 
 def decode_step(params, cfg: ModelConfig, state, tokens, pos
@@ -272,23 +375,27 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos
     """One decode step. tokens: (B,) integer; pos: () integer, or (B,)
     for per-row positions (slot continuous batching).
 
-    Returns (logits (B, vocab), new_state). The KV caches of ``state`` are
-    updated in place and shared with ``new_state``.
+    Returns (logits (B, vocab), new_state). The KV caches of ``state``
+    (and, in a scanned stack, every state leaf) are updated in place and
+    shared with ``new_state``.
     """
     x = params["embed"][tokens].to(cfg.dtype)
     return _decode_step_embed(params, cfg, state, x, pos)
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, max_len: int
+def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
+            prefix_embeds=None, enc_frames=None
             ) -> Tuple[torch.Tensor, PyTree]:
     """Process a prompt and build a decode state by stepping (reference
     implementation used by tests; production serving uses forward() for
     logits and batch-writes the cache)."""
     B, S = tokens.shape
-    state = init_decode_state(cfg, B, max_len, device=tokens.device)
+    enc_out = encode(params, cfg, enc_frames) if cfg.is_encdec else None
+    state = init_decode_state(cfg, B, max_len, enc_out=enc_out,
+                              device=tokens.device)
     logits = None
-    x, _ = _embed_inputs(params, cfg, tokens)
-    for t in range(S):
+    x, _ = _embed_inputs(params, cfg, tokens, prefix_embeds)
+    for t in range(x.shape[1]):
         logits, state = _decode_step_embed(params, cfg, state, x[:, t], t)
     return logits, state
 
@@ -298,7 +405,8 @@ def _decode_step_embed(params, cfg, state, x_embed, pos):
     # one host-to-device copy of a host position per step, not per layer
     pos = torch.as_tensor(pos, device=x.device).long()
     x, new_layers = _apply_stack_decode(params["stack"], x, cfg,
-                                        state["layers"], pos=pos)
+                                        state["layers"], pos=pos,
+                                        enc_out=state.get("enc_out"))
     logits = _lm_logits(params, cfg, x)[:, 0, :]
     new_state = dict(state)
     new_state["layers"] = new_layers

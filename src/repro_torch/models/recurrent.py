@@ -1,0 +1,308 @@
+"""Recurrent sequence mixers: RG-LRU (Griffin/RecurrentGemma) and
+xLSTM's mLSTM / sLSTM cells.
+
+Training/prefill runs each recurrence as a sequential loop over time in
+fp32: the JAX package's ``lax.associative_scan`` (RG-LRU) and two-level
+checkpointed ``lax.scan`` (``chunked_scan``) compute the same recurrences
+(the associative scan in another association order, so RG-LRU outputs
+differ from it by fp32 rounding only: within 1e-5 of the reference per
+block in fp32, tests/test_torch_family_modules.py). Decode is a single
+state update - this is what makes the state O(1) in context for these
+archs - and equals the sequential loop's step. Every update keeps the
+reference's fp32 / compute-dtype casts.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.mlp import _gelu
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear above
+    # its threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def chunked_scan(f, init, xs):
+    """``lax.scan`` over the leading axis of every tensor of ``xs``:
+    returns (final carry, stacked per-step outputs). The JAX package's
+    chunked checkpointing saves memory for the backward pass only and
+    computes the same values."""
+    carry, ys = init, []
+    for t in range(xs[0].shape[0]):
+        carry, y = f(carry, tuple(x[t] for x in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma recurrent block: conv1d + gated linear recurrence)
+# ---------------------------------------------------------------------------
+
+_CONV_K = 4
+_C_GATE = 8.0
+
+
+def init_rglru(gen: torch.Generator, cfg: ModelConfig
+               ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    dev = gen.device
+    return {
+        # block input projections (recurrent branch + gelu gate branch)
+        "w_in_x": dense_init(gen, (d, d)),
+        "w_in_g": dense_init(gen, (d, d)),
+        "conv_w": dense_init(gen, (_CONV_K, d)) * 0.1,
+        # RG-LRU gates
+        "w_a": dense_init(gen, (d, d)),
+        "w_x": dense_init(gen, (d, d)),
+        "b_a": torch.zeros((d,), dtype=torch.float32, device=dev),
+        "b_x": torch.zeros((d,), dtype=torch.float32, device=dev),
+        # recurrence decay parameter Lambda (softplus-parameterized)
+        "lam": torch.full((d,), 2.0, dtype=torch.float32, device=dev),
+        "w_out": dense_init(gen, (d, d)),
+    }
+
+
+def _rglru_gates(p, x):
+    """a_t (decay) and gated input for the linear recurrence, fp32."""
+    dt = x.dtype
+    r = torch.sigmoid((x @ p["w_a"].to(dt)).float() + p["b_a"])
+    i = torch.sigmoid((x @ p["w_x"].to(dt)).float() + p["b_x"])
+    log_a = -_C_GATE * _softplus(p["lam"]) * r             # (B,S,d) fp32
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    b = mult * i * x.float()
+    return a, b
+
+
+def _conv1d_causal(w, x, state=None):
+    """Depthwise causal conv, kernel K, as the reference's K-term sum of
+    shifted products (``F.conv1d`` sums in another order). x: (B,S,d);
+    state: (B,K-1,d)."""
+    K = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
+    return out, xp[:, -(K - 1):]
+
+
+def rglru_block(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence recurrent block (train/prefill). x: (B,S,d)."""
+    dt = x.dtype
+    g = _gelu(x @ p["w_in_g"].to(dt))
+    h = x @ p["w_in_x"].to(dt)
+    h, _ = _conv1d_causal(p["conv_w"], h)
+    a, b = _rglru_gates(p, h)
+    # h_t = a_t * h_{t-1} + b_t from h_{-1} = 0, sequentially in fp32
+    hs = []
+    ht = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        ht = a[:, t] * ht + b[:, t]
+        hs.append(ht)
+    y = torch.stack(hs, dim=1).to(dt)
+    return (y * g) @ p["w_out"].to(dt)
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, dtype, device=None):
+    d = cfg.d_model
+    return {"h": torch.zeros((batch, d), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, _CONV_K - 1, d), dtype=dtype,
+                                device=device)}
+
+
+def rglru_decode(p, x, cfg: ModelConfig, state
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One-token step. x: (B,1,d)."""
+    dt = x.dtype
+    g = _gelu(x @ p["w_in_g"].to(dt))
+    h = x @ p["w_in_x"].to(dt)
+    h, conv_state = _conv1d_causal(p["conv_w"], h, state["conv"])
+    a, b = _rglru_gates(p, h)
+    h_new = a[:, 0] * state["h"] + b[:, 0]
+    y = h_new[:, None, :].to(dt)
+    out = (y * g) @ p["w_out"].to(dt)
+    return out, {"h": h_new, "conv": conv_state}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm(gen: torch.Generator, cfg: ModelConfig
+               ) -> Dict[str, torch.Tensor]:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    dev = gen.device
+    return {
+        "wq": dense_init(gen, (d, H * hd)),
+        "wk": dense_init(gen, (d, H * hd)),
+        "wv": dense_init(gen, (d, H * hd)),
+        "wi": dense_init(gen, (d, H)),
+        "wf": dense_init(gen, (d, H)),
+        "wo_gate": dense_init(gen, (d, H * hd)),
+        "w_out": dense_init(gen, (H * hd, d)),
+        "bf": torch.full((H,), 3.0, dtype=torch.float32, device=dev),
+        "bi": torch.zeros((H,), dtype=torch.float32, device=dev),
+    }
+
+
+def _mlstm_qkv(p, x, cfg):
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    dt = x.dtype
+    # sqrt(hd) in fp32, then cast to the compute dtype, as the reference
+    root = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                   device=x.device)).to(dt)
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, H, hd) / root
+    v = (x @ p["wv"].to(dt)).reshape(B, S, H, hd)
+    i_gate = (x @ p["wi"].to(dt)).float() + p["bi"]
+    f_gate = (x @ p["wf"].to(dt)).float() + p["bf"]
+    o_gate = torch.sigmoid(x @ p["wo_gate"].to(dt))
+    return q, k, v, i_gate, f_gate, o_gate
+
+
+def _mlstm_step(carry, inp):
+    """Stabilized mLSTM recurrence (one time step, batched).
+
+    carry: C (B,H,hd,hd), n (B,H,hd), m (B,H)
+    inp:   q,k,v (B,H,hd); i,f (B,H)
+    """
+    C, n, m = carry
+    q, k, v, i, f = inp
+    m_new = torch.maximum(f + m, i)
+    fg = torch.exp(f + m - m_new)[..., None]
+    ig = torch.exp(i - m_new)[..., None]
+    C = fg[..., None] * C + ig[..., None] * (k[..., :, None]
+                                             * v[..., None, :])
+    n = fg * n + ig * k
+    h_num = torch.einsum("bhij,bhi->bhj", C, q.to(C.dtype))
+    h_den = torch.clamp_min(torch.abs(torch.einsum(
+        "bhi,bhi->bh", n, q.to(n.dtype))), 1.0)
+    h = h_num / h_den[..., None]
+    return (C, n, m_new), h
+
+
+def mlstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    dt = x.dtype
+    dev = x.device
+    q, k, v, i, f, o = _mlstm_qkv(p, x, cfg)
+    q32, k32, v32 = (t.float().transpose(0, 1) for t in (q, k, v))
+    i32 = i.transpose(0, 1)
+    f32 = F.logsigmoid(f).transpose(0, 1)
+    init = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev),
+            torch.zeros((B, H, hd), dtype=torch.float32, device=dev),
+            torch.full((B, H), -torch.inf, dtype=torch.float32, device=dev))
+    _, hs = chunked_scan(_mlstm_step, init, (q32, k32, v32, i32, f32))
+    h = hs.transpose(0, 1).to(dt).reshape(B, S, H * hd)
+    return (h * o) @ p["w_out"].to(dt)
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, device=None):
+    H, hd = cfg.n_heads, cfg.hd
+    return {"C": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
+                             device=device),
+            "n": torch.zeros((batch, H, hd), dtype=torch.float32,
+                             device=device),
+            "m": torch.full((batch, H), -torch.inf, dtype=torch.float32,
+                            device=device)}
+
+
+def mlstm_decode(p, x, cfg: ModelConfig, state
+                 ) -> Tuple[torch.Tensor, Dict]:
+    B = x.shape[0]
+    dt = x.dtype
+    q, k, v, i, f, o = _mlstm_qkv(p, x, cfg)
+    carry = (state["C"], state["n"], state["m"])
+    inp = (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), i[:, 0],
+           F.logsigmoid(f[:, 0]))
+    (C, n, m), h = _mlstm_step(carry, inp)
+    h = h.to(dt).reshape(B, 1, -1)
+    out = (h * o) @ p["w_out"].to(dt)
+    return out, {"C": C, "n": n, "m": m}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory cell with exponential gating)
+# ---------------------------------------------------------------------------
+
+
+def init_slstm(gen: torch.Generator, cfg: ModelConfig
+               ) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    return {
+        "wz": dense_init(gen, (d, d)),
+        "wi": dense_init(gen, (d, d)),
+        "wf": dense_init(gen, (d, d)),
+        "wo_gate": dense_init(gen, (d, d)),
+        "w_out": dense_init(gen, (d, d)),
+        "bf": torch.full((d,), 3.0, dtype=torch.float32, device=gen.device),
+    }
+
+
+def _slstm_step(carry, inp):
+    """carry: c,n,m (B,d); inp: z,i,f,o (B,d) fp32 (pre-activation)."""
+    c, n, m = carry
+    z, i, f, o = inp
+    logf = F.logsigmoid(f)
+    m_new = torch.maximum(logf + m, i)
+    fg = torch.exp(logf + m - m_new)
+    ig = torch.exp(i - m_new)
+    c = fg * c + ig * torch.tanh(z)
+    n = fg * n + ig
+    h = torch.sigmoid(o) * c / torch.clamp_min(n, 1.0)
+    return (c, n, m_new), h
+
+
+def _slstm_pre(p, x):
+    dt = x.dtype
+    z = (x @ p["wz"].to(dt)).float()
+    i = (x @ p["wi"].to(dt)).float()
+    f = (x @ p["wf"].to(dt)).float() + p["bf"]
+    o = (x @ p["wo_gate"].to(dt)).float()
+    return z, i, f, o
+
+
+def slstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
+    B, S, d = x.shape
+    dt = x.dtype
+    dev = x.device
+    z, i, f, o = _slstm_pre(p, x)
+    init = (torch.zeros((B, d), dtype=torch.float32, device=dev),
+            torch.zeros((B, d), dtype=torch.float32, device=dev),
+            torch.full((B, d), -torch.inf, dtype=torch.float32, device=dev))
+    _, hs = chunked_scan(_slstm_step, init,
+                         tuple(t.transpose(0, 1) for t in (z, i, f, o)))
+    h = hs.transpose(0, 1).to(dt)
+    return h @ p["w_out"].to(dt)
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, device=None):
+    d = cfg.d_model
+    return {"c": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "n": torch.zeros((batch, d), dtype=torch.float32, device=device),
+            "m": torch.full((batch, d), -torch.inf, dtype=torch.float32,
+                            device=device)}
+
+
+def slstm_decode(p, x, cfg: ModelConfig, state
+                 ) -> Tuple[torch.Tensor, Dict]:
+    dt = x.dtype
+    z, i, f, o = _slstm_pre(p, x)
+    carry = (state["c"], state["n"], state["m"])
+    (c, n, m), h = _slstm_step(carry, (z[:, 0], i[:, 0], f[:, 0], o[:, 0]))
+    out = h[:, None, :].to(dt) @ p["w_out"].to(dt)
+    return out, {"c": c, "n": n, "m": m}

@@ -211,6 +211,13 @@ class HeteroServeEngine:
                 if wname not in ffn:
                     continue
                 w = ffn[wname]
+                if w.ndim != 2:
+                    # the JAX package hands MoE's (E, d_model, d_ff)
+                    # expert weights to split_weight, whose column-count
+                    # assert fails (ROADMAP reference note (e))
+                    raise AssertionError(
+                        f"{lname}/{wname}: expert weights {tuple(w.shape)}"
+                        f" cannot be split by columns")
                 counts = fractions_to_counts(
                     w.shape[-1],
                     {space_to_tier[k]: v for k, v in placement.items()},
@@ -274,8 +281,11 @@ class HeteroServeEngine:
         the int8 tiers' ``pim_mac`` kernel; tests use it to check the
         placement invariance of the math."""
         if not self._tiered:
-            raise RuntimeError("no tiered weights: run_slice first (a "
-                               "scanned stack tiers none)")
+            # the JAX package's ``assert self._tiered``: no tiered weights
+            # before the first slice, and none in a scanned stack or
+            # without FFNs (ROADMAP reference notes (c), (g))
+            raise AssertionError("no tiered weights: run_slice first (a "
+                                 "scanned stack or d_ff=0 tiers none)")
         key = next(iter(self._tiered))
         return tiered_matmul(x, self._tiered[key])
 

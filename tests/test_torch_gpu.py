@@ -264,3 +264,81 @@ def test_cuda_pim_mac_raises_instead_of_falling_back():
         pops.pim_matmul(x, w.t().contiguous().t(), sx, sw)
     with pytest.raises(ValueError, match="w_i8 on cpu"):
         pops.pim_matmul(x, w.cpu(), sx, sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 640, 3839, 5120, 7680])
+@pytest.mark.parametrize("M", [4, 16])
+def test_cuda_pim_mac_at_the_recurrentgemma_width(M, N):
+    # K = d_model = 2560 and tier widths up to d_ff = 7680: the int8 tiers
+    # of recurrentgemma_2b's FFN matrices
+    dev = _card()
+    x, w, sx, sw = _pim_case(M + N, M, 2560, N, dev)
+    for od in (torch.float32, torch.bfloat16):
+        out = pops.pim_matmul(x, w, sx, sw, out_dtype=od)
+        assert torch.equal(out, pim_matmul_ref(x, w, sx, sw, od)), od
+
+
+# -- the model families, CUDA against the CPU --------------------------------
+
+# fp32 logits of the smoke models, CUDA against the CPU: sums of at most a
+# few hundred terms taken in another order, through at most 16 blocks
+FAMILY_ATOL = 1e-4
+FAMILIES = ["arctic_480b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
+            "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def _family_run(cfg, params, dev, toks, extra):
+    """forward, prefill and three decode steps (the last with per-row
+    positions) on ``dev``; every logits tensor, on the CPU."""
+    from repro_torch.models import lm
+    p = _to(params, dev)
+    toks = toks.to(dev)
+    extra = _to(extra, dev)
+    outs = [lm.forward(p, cfg, toks, **extra)[0]]
+    logits, st = lm.prefill(p, cfg, toks, max_len=16, **extra)
+    outs.append(logits)
+    n = toks.shape[1] + cfg.n_prefix_embeds
+    for i, pos in enumerate((n, n + 1, torch.tensor([n + 2, 3]))):
+        logits, st = lm.decode_step(p, cfg, st, toks[:, i],
+                                    _to(torch.as_tensor(pos), dev))
+        outs.append(logits)
+    return [o.cpu() for o in outs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_cuda_families_match_cpu(arch):
+    """Every family's smoke model (fp32, TF32 off) on the card against the
+    same params and inputs on the CPU: forward with its prefix embeddings
+    or encoder frames, prefill, and decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    dev = _card()
+    cfg = get_smoke_config(arch)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 6), generator=g)
+    extra = {}
+    if cfg.n_prefix_embeds:
+        extra["prefix_embeds"] = torch.randn(
+            (2, cfg.n_prefix_embeds, cfg.d_model), generator=g)
+    if cfg.is_encdec:
+        extra["enc_frames"] = torch.randn((2, 5, cfg.d_model), generator=g)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ours = _family_run(cfg, params, dev, toks, extra)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    ref = _family_run(cfg, params, torch.device("cpu"), toks, extra)
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        assert a.shape == b.shape
+        err = float((a - b).abs().max())
+        assert err <= FAMILY_ATOL, (arch, i, err)

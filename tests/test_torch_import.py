@@ -28,6 +28,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     for m in ("repro_torch.kernels.lut_pipeline.ops",
               "repro_torch.kernels.pim_mac.ops", "repro_torch.quant.int8",
               "repro_torch.models.lm", "repro_torch.models.hetero_linear",
+              "repro_torch.models.moe", "repro_torch.models.recurrent",
               "repro_torch.serve.engine", "repro_torch.launch.serve"):
         assert m in mods, m
     code = ("import importlib, sys\n"

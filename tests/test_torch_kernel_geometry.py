@@ -36,6 +36,9 @@ PIM_SHAPES = [
     (16, 2048, 128), (16, 2048, 928), (17, 2047, 7264), (16, 4096, 2560),
     (16, 129, 37), (37, 129, 255), (100, 70, 50), (8, 8, 8), (1, 0, 1),
     (16, 64, 1), (16, 65, 16), (300, 96, 129), (16, 131071, 64),
+    # recurrentgemma_2b's FFN (d_model 2560, d_ff 7680): decode tiers
+    (16, 2560, 7680), (16, 2560, 5120), (16, 2560, 3839), (16, 2560, 1),
+    (4, 2560, 640), (32, 2560, 7680),
 ]
 
 
@@ -75,6 +78,19 @@ def test_pim_split_plan_fills_the_card_at_decode():
     assert (narrow.blocks, narrow.k_chunk) == (pops.MAX_SPLITS,
                                                2048 // pops.MAX_SPLITS)
     assert pops.split_plan(16, 64, 8192, sms=132).splits == 1
+
+
+def test_pim_split_plan_at_the_recurrentgemma_width():
+    # K = 2560 is 40 BK steps: the widest tier (all 7680 columns) splits
+    # K in 5 chunks of 8 steps, about two blocks per SM; narrower tiers
+    # split further, up to MAX_SPLITS chunks of 5 steps
+    wide = pops.split_plan(16, 2560, 7680, sms=132)
+    assert (wide.n_tiles, wide.splits, wide.k_chunk) == (60, 5, 512)
+    assert 2 * 132 <= wide.blocks <= 3 * 132
+    for n in (128, 1000, 3840):
+        p = pops.split_plan(16, 2560, n, sms=132)
+        assert (p.splits, p.k_chunk) == (pops.MAX_SPLITS, 320)
+    assert pops.split_plan(16, 2560, 5120, sms=132).splits == 7
 
 
 def test_pim_split_plan_rejects_what_the_grid_cannot_hold():

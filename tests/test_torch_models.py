@@ -1,11 +1,13 @@
-"""The port's dense decoder models against the JAX package, on the CPU.
+"""The port's dense decoder models against the JAX package, on the CPU,
+and the param and decode-state layout of every family.
 
 Both packages run the same weights (JAX's init carried over by
 ``lm.params_from_numpy``) on the same token ids, made with numpy from a
 seed, in fp32. ``forward``, ``prefill`` and ``decode_step`` logits agree
 within LOGIT_ATOL - the tolerance the reference's own engine tests use -
 on the smoke configs of internlm2_1_8b, chatglm3_6b (2-D RoPE) and
-qwen25_32b (QKV bias), with and without the scanned stack layout.
+qwen25_32b (QKV bias), with and without the scanned stack layout. The
+other families' numerics are held in tests/test_torch_families.py.
 """
 import dataclasses
 
@@ -136,8 +138,23 @@ def test_rope_and_rms_norm_match_jax(kind):
            atol=ACT_ATOL)
 
 
-def test_init_lm_matches_the_reference_layout():
-    cfg_j, cfg_t = _configs("qwen25_32b", n_layers=4, scan_layers=True)
+# every family's tree (cross attention, an encoder, MoE experts, recurrent
+# mixers, FFN-less blocks) and the scanned layouts, heterogeneous periods
+# included
+LAYOUTS = [("internlm2_1_8b", {})] + [(a, {}) for a in (
+    "arctic_480b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
+    "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b")] + [
+    ("qwen25_32b", dict(n_layers=4, scan_layers=True)),
+    ("recurrentgemma_2b", dict(n_layers=8, scan_layers=True)),
+    ("xlstm_1_3b", dict(scan_layers=True, d_ff=0)),
+    ("seamless_m4t_medium", dict(n_layers=4, n_encoder_layers=4,
+                                 scan_layers=True))]
+
+
+@pytest.mark.parametrize("arch,over", LAYOUTS, ids=[
+    a + ("-scan" if o.get("scan_layers") else "") for a, o in LAYOUTS])
+def test_init_lm_matches_the_reference_layout(arch, over):
+    cfg_j, cfg_t = _configs(arch, **over)
     pt = lm.init_lm(torch.Generator().manual_seed(0), cfg_t)
     pj = jax.eval_shape(lambda: jax_lm.init_lm(jax.random.PRNGKey(0),
                                                cfg_j))
@@ -150,21 +167,13 @@ def test_init_lm_matches_the_reference_layout():
         pt))
     again = lm.init_lm(torch.Generator().manual_seed(0), cfg_t)
     assert torch.equal(again["embed"], pt["embed"])
-
-
-@pytest.mark.parametrize("arch", ["arctic_480b", "recurrentgemma_2b",
-                                  "xlstm_1_3b", "seamless_m4t_medium",
-                                  "pixtral_12b"])
-def test_other_families_raise(arch):
-    cfg_j, cfg_t = _configs(arch)
-    with pytest.raises(NotImplementedError):
-        lm.init_lm(torch.Generator().manual_seed(0), cfg_t)
-    with pytest.raises(NotImplementedError):
-        lm.init_decode_state(cfg_t, 1, 8, device="cpu")
-    if arch != "pixtral_12b":            # a VLM's backbone params are dense
-        pj = jax.eval_shape(lambda: jax_lm.init_lm(jax.random.PRNGKey(0),
-                                                   cfg_j))
-        tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
-                                      pj)
-        with pytest.raises(NotImplementedError):
-            lm.params_from_numpy(tree, "cpu")
+    # the decode state's layout too (KV caches clamped to a local window,
+    # recurrent rows, mLSTM matrices), with enc_out for enc-dec models
+    st = lm.init_decode_state(cfg_t, 2, 32, device="cpu")
+    sj = jax.eval_shape(lambda: jax_lm.init_decode_state(cfg_j, 2, 32))
+    ours = {jax.tree_util.keystr(p): tuple(v.shape) for p, v in
+            jax.tree_util.tree_leaves_with_path(st)}
+    ref = {jax.tree_util.keystr(p): v.shape for p, v in
+           jax.tree_util.tree_leaves_with_path(sj)}
+    assert ours == ref
+    assert ("enc_out" in st) == ("enc_out" in sj) == cfg_t.is_encdec

@@ -360,8 +360,10 @@ def test_hetero_engine_mirrors_the_scanned_stack_fault():
     rj, rt = ej.run_slice(3), et.run_slice(3)
     assert rt.retiered and rj.retiered
     assert et._tiered == {} and ej._tiered == {}
-    with pytest.raises(RuntimeError, match="run_slice first"):
+    with pytest.raises(AssertionError, match="run_slice first"):
         et.tiered_forward(torch.zeros((1, 64)))
+    with pytest.raises(AssertionError):
+        ej.tiered_forward(jnp.zeros((1, 64)))
 
 
 def test_hetero_engine_rejects_params_on_another_device():
