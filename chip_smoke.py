@@ -82,12 +82,32 @@ H100; the kernels are built for sm_90a). Phases:
      tiers bitwise to the CPU, ``pim_mac`` at K=2560; ``DecodeEngine``
      with 6 requests of 8 tokens; ``pim_mac`` against its plain version
      at the tier widths and timed L2-cold at the widest int8 tier;
-  10. print each phase's seconds, the ``{"kernels": [...]}`` line (each
-     kernel's CUDA-event ``ms`` and profiler ``device_ms``; ``pim_mac``
-     also its comparison with the library call at M=32 under
-     ``at_library_shape``, its recurrentgemma row under
-     ``at_recurrentgemma_shape`` and its launches per serving path) and,
-     last, the ``{"ok": true, "device": {...}}`` line.
+  10. the serving fleet at full width with every launch count set to 0
+     just before bring-up: ``api.fleet("gpu-pool-mixed", ...,
+     n_engines=4, decode=True, solver="dp", dvfs=True, device="cuda")``,
+     four internlm2_1_8b workers (two engine shapes) sharing one set of
+     random weights, whose bring-up builds every LUT and DVFS clock grid
+     on ``dp_stages`` and ``minplus_combine``, over an mmpp trace with
+     obs tracing on; bring-up timed on the host clock with the
+     stage-tensor copies to the host split out, each slice ending in a
+     synchronize (p50/p99), and the spans of ``worker.step``,
+     ``engine.migration``, ``engine.decode`` and ``compiler.lut_build``;
+     every migration tiers 48 matrices; each worker's ``SliceReport``
+     sequence and the ``FleetSummary`` equal the same fleet with
+     ``decode=False`` on the card and on the CPU, and ``pc.stats()``
+     equals the CPU's but for the device; each worker's int8 tiers run
+     ``pim_mac`` in ``tiered_forward`` bitwise to the CPU. Then the
+     hierarchical fleet (4 cells x 4 engines, autoscaled to 8 per cell,
+     dp, a flash crowd) and the DAG fleet on cxl-tier-3 (4 cells x 2
+     engines, C=3) on the card against the CPU: the same assignments,
+     scale events (new workers paying 0 LUT builds), summaries and
+     ``DagResult``;
+  11. print each phase's seconds, the ``{"kernels": [...]}`` line (each
+     kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
+     in total and per driven path; ``pim_mac`` also its comparison with
+     the library call at M=32 under ``at_library_shape`` and its
+     recurrentgemma row under ``at_recurrentgemma_shape``) and, last,
+     the ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line, as does a machine
 without a CUDA card or a directory without the repository's ``src/``.
@@ -95,6 +115,7 @@ The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import math
@@ -1469,6 +1490,317 @@ def phase_serving_recurrentgemma(cfg, params, out: dict) -> None:
           f"{time.perf_counter() - t0:.2f} s")
 
 
+# -- the serving fleet -----------------------------------------------------
+
+FLEET_SLICES = 16
+# the trace's backlog drains within a few slices at this load; the cap
+# bounds the phase's wall time (each slice decodes up to four full-width
+# steps) whatever the trace does
+FLEET_DRAIN_SLICES = 16
+
+
+def fleet_trace():
+    from repro_torch.fleet import make_trace
+    return make_trace("mmpp", n_slices=FLEET_SLICES, seed=0)
+
+
+def fleet_reports(fl) -> list:
+    return [[dataclasses.asdict(r) for r in w.reports] for w in fl.workers]
+
+
+def same_stats(a: dict, b: dict, dev_a: str, dev_b: str) -> bool:
+    """Two ``pc.stats()`` equal but for the build device's label."""
+    a, b = dict(a), dict(b)
+    by_a, by_b = a.pop("builds_by_backend"), b.pop("builds_by_backend")
+    return (a == b and by_a == {dev_a: a["builds"]}
+            and by_b == {dev_b: b["builds"]})
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.knapsack_dp.ops import dp_stages
+    from repro_torch.kernels.lut_pipeline.ops import minplus_combine
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    return {"dp_stages": dp_stages.launches,
+            "minplus_combine": minplus_combine.launches,
+            "pim_mac": pim_matmul.launches}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels.knapsack_dp.ops import dp_stages
+    from repro_torch.kernels.lut_pipeline.ops import minplus_combine
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    dp_stages.launches = minplus_combine.launches = 0
+    pim_matmul.launches = 0
+
+
+def nearest_rank(xs, q: float) -> float:
+    s = sorted(xs)
+    return s[max(math.ceil(q / 100 * len(s)) - 1, 0)]
+
+
+def fleet_decode_run(cfg, params, card: str) -> dict:
+    """The flat fleet at full width: ``api.fleet("gpu-pool-mixed", ...,
+    decode=True, solver="dp", dvfs=True)`` with four workers (two engine
+    shapes) sharing ``params``, driven with every launch count set to 0
+    just before bring-up and obs tracing on. Bring-up is timed on the
+    host clock with the stage tensors' copies to the host split out;
+    each slice ends in a synchronize. Returns the fleet, its result and
+    the timings."""
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.core import placement
+
+    kw = dict(n_engines=4, solver="dp", dvfs=True, forecaster="holt",
+              max_batch=16)
+    d2h = {"ms": 0.0, "n": 0, "bytes": 0}
+    host = placement._host
+
+    def timed_host(x):
+        torch.cuda.synchronize()          # the kernels end before the copy
+        t = time.perf_counter()
+        y = host(x)
+        d2h["ms"] += (time.perf_counter() - t) * 1e3
+        d2h["n"] += 1
+        d2h["bytes"] += y.nbytes
+        return y
+
+    obs.reset()
+    obs.enable()
+    zero_kernel_counts()
+    placement._host = timed_host
+    try:
+        t0 = time.perf_counter()
+        pc = api.compiler(device="cuda")
+        fl = api.fleet("gpu-pool-mixed", cfg, params=params, decode=True,
+                       compiler=pc, device="cuda", **kw)
+        torch.cuda.synchronize()
+        bring_up_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        placement._host = host
+    at_bring_up = kernel_counts()
+    lut_ms = sum(ev["dur"] / 1e3 for ev in obs.tracer().events()
+                 if ev["name"] == "compiler.lut_build")
+    print(f"[fleet] bring-up of api.fleet(gpu-pool-mixed, internlm2_1_8b, "
+          f"4 engines, decode, dp, dvfs): {bring_up_ms!r} ms host clock "
+          f"({card}); compiler.lut_build spans {lut_ms!r} ms; stage-tensor "
+          f"copies to the host {d2h['ms']!r} ms in {d2h['n']} copies of "
+          f"{d2h['bytes']} bytes; {pc.stats()}; launches {at_bring_up}")
+    require(at_bring_up["dp_stages"] > 0 and at_bring_up["minplus_combine"]
+            > 0, f"a placement kernel never launched at bring-up: "
+            f"{at_bring_up}")
+
+    trace = fleet_trace()
+    stamps = []
+
+    def cb(s, n_arr, done, workers):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    res = fl.run(trace, max_drain_slices=FLEET_DRAIN_SLICES, verbose_cb=cb)
+    slice_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    launches = kernel_counts()
+    spans = {r["name"]: r for r in obs.summarize_events(
+        obs.tracer().events())}
+    migrations = [ev["args"]["n_weights"] for ev in obs.tracer().events()
+                  if ev["name"] == "engine.migration"]
+    obs.reset()
+    print(f"[fleet] {res.n_slices} slices run ({len(trace)} of trace "
+          f"{trace.name}, {trace.total} requests, drain capped at "
+          f"{FLEET_DRAIN_SLICES}); per-slice wall ms p50 "
+          f"{nearest_rank(slice_ms, 50)!r} p99 {nearest_rank(slice_ms, 99)!r}"
+          f" max {max(slice_ms)!r} total {sum(slice_ms)!r} ({card})")
+    for name in ("worker.step", "engine.migration", "engine.decode",
+                 "compiler.lut_build", "sched.slice", "fleet.slice"):
+        r = spans.get(name)
+        print(f"[fleet] span {name}: "
+              + ("none" if r is None else
+                 f"count {r['count']} total_us {r['total_us']!r} mean_us "
+                 f"{r['mean_us']!r} max_us {r['max_us']!r}"))
+    require(migrations and all(n == 2 * cfg.n_layers for n in migrations),
+            f"fleet migrations tiered {migrations} matrices")
+    print(f"[fleet] {len(migrations)} migrations, each of "
+          f"{2 * cfg.n_layers} matrices")
+    print(f"[fleet] launches from bring-up to the end of the run: "
+          f"{launches}")
+    return dict(fleet=fl, res=res, pc=pc, bring_up_ms=bring_up_ms,
+                lut_ms=lut_ms, d2h=d2h, slice_ms=slice_ms, spans=spans,
+                launches=launches)
+
+
+def fleet_analytic(cfg, dev: str, trace) -> tuple:
+    """The same fleet without engines (``decode=False``) on ``dev``."""
+    from repro_torch import api
+    pc = api.compiler(device=dev)
+    fl = api.fleet("gpu-pool-mixed", cfg, n_engines=4, solver="dp",
+                   dvfs=True, forecaster="holt", max_batch=16,
+                   compiler=pc, device=dev)
+    return fl, fl.run(trace, max_drain_slices=FLEET_DRAIN_SLICES), pc
+
+
+def hierarchy_check(cfg) -> dict:
+    """The two-level fleet with the autoscaler (analytic) on the card
+    against the CPU: the same assignments, scale events and summary;
+    scale-ups pay 0 LUT builds."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.fleet import make_trace, summarize
+
+    # a crowd that starts at once and decays slowly: cells scale up with
+    # new workers (not only parked ones) before the load falls
+    trace = make_trace("flash", n_slices=24, seed=0, spike=300.0,
+                       spike_slice=0, decay=0.9)
+    kw = dict(n_cells=4, engines_per_cell=4, autoscale=True,
+              max_engines=8, solver="dp")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        pc = api.compiler(device=dev)
+        hf = api.hierarchical_fleet("gpu-pool-mixed", cfg, compiler=pc,
+                                    device=dev, **kw)
+        res = hf.run(trace)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (res, pc.stats(), kernel_counts(),
+                     (time.perf_counter() - t0) * 1e3)
+    (rc, sc, lc, ms), (rp, sp, _, ms_cpu) = runs["cuda"], runs["cpu"]
+    require(rc.assignments == rp.assignments, "hierarchy: assignments "
+            "cuda != cpu")
+    require([dataclasses.asdict(e) for e in rc.scale_events]
+            == [dataclasses.asdict(e) for e in rp.scale_events],
+            "hierarchy: scale events cuda != cpu")
+    require(summarize(rc) == summarize(rp), "hierarchy: summary")
+    require(same_stats(sc, sp, "cuda", "cpu"), f"hierarchy: {sc} / {sp}")
+    fresh = sum(e.direction == "up" and not e.unparked
+                for e in rc.scale_events)
+    require(fresh > 0 and rc.scale_up_builds == 0,
+            f"hierarchy: {rc.n_scale_ups} scale-ups ({fresh} new workers) "
+            f"paid {rc.scale_up_builds} builds")
+    require(lc["dp_stages"] > 0 and lc["minplus_combine"] > 0,
+            f"hierarchy: launches {lc}")
+    s = summarize(rc)
+    print(f"[fleet] hierarchical gpu-pool-mixed 4 cells x 4 engines, "
+          f"autoscale to 8, dp, {trace.name}: {len(rc.assignments)} "
+          f"assignments, {rc.n_scale_ups} scale-ups ({fresh} new workers, "
+          f"{rc.scale_up_builds} builds) / {rc.n_scale_downs} downs, engines "
+          f"{rc.n_engines_start} -> {rc.n_engines_peak} -> "
+          f"{rc.n_engines_end}; completed {s.n_completed}/{s.n_submitted}, "
+          f"miss rate {s.deadline_miss_rate!r}; == cpu; {sc}; launches "
+          f"{lc}; {ms!r} ms (cpu {ms_cpu!r} ms)")
+    return lc
+
+
+def dag_check(cfg) -> dict:
+    """The DAG fleet on cxl-tier-3 (C=3: the combine's middle fold) on
+    the card against the CPU: the whole ``DagResult`` equal."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.fleet import dag_arrivals, default_tenants
+    from repro_torch.fleet import tenant_breakdown
+
+    dtr = dag_arrivals(default_tenants(), n_slices=16, seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        zero_kernel_counts()
+        pc = api.compiler(device=dev)
+        df = api.dag_fleet("cxl-tier-3", cfg, n_cells=4, engines_per_cell=2,
+                           solver="dp", compiler=pc, device=dev)
+        res = df.run_dag(dtr)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (df, res, pc.stats(), kernel_counts())
+    (fc, rc, sc, lc), (fp, rp, sp, _) = runs["cuda"], runs["cpu"]
+    require(dataclasses.asdict(rc) == dataclasses.asdict(rp),
+            "dag: DagResult cuda != cpu")
+    tb = tenant_breakdown(rc, fc)
+    require(tb == tenant_breakdown(rp, fp), "dag: tenant breakdown")
+    require(same_stats(sc, sp, "cuda", "cpu"), f"dag: {sc} / {sp}")
+    require(lc["dp_stages"] > 0 and lc["minplus_combine"] > 0,
+            f"dag: launches {lc}")
+    print(f"[fleet] dag cxl-tier-3 4 cells x 2 engines, dp, {dtr.name} "
+          f"({dtr.total} dags): completed {len(rc.completed)}, rejected "
+          f"{len(rc.rejected)}, unfinished {len(rc.unfinished)}, "
+          f"{len(rc.assignments)} stage placements, {rc.handoffs} "
+          f"handoffs; == cpu; {sc}; launches {lc}; tenants "
+          f"{ {k: v['n_completed'] for k, v in tb.items()} }")
+    return lc
+
+
+def phase_fleet(cfg, card: str, out: dict) -> None:
+    """The serving fleet (slice C): full-width internlm2_1_8b workers on
+    gpu-pool-mixed, held to the same fleet without engines on the card
+    and on the CPU; each worker's int8 tiers through ``pim_mac``
+    bitwise to the CPU; then the hierarchical and DAG fleets against the
+    CPU."""
+    import torch
+
+    from repro_torch.fleet import summarize
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(16), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[fleet] {cfg.name}: {n_params} params, {model_bytes(params)} "
+          f"bytes, shared by every worker ({time.perf_counter() - t0:.2f} s)")
+    run = fleet_decode_run(cfg, params, card)
+    fl, res, pc = run["fleet"], run["res"], run["pc"]
+    trace = fleet_trace()
+    reports = fleet_reports(fl)
+    summary = summarize(res)
+    for dev in ("cuda", "cpu"):
+        afl, ares, apc = fleet_analytic(cfg, dev, trace)
+        require(fleet_reports(afl) == reports,
+                f"fleet: decode=True reports != decode=False on {dev}")
+        require(summarize(ares) == summary, f"fleet: summary != {dev}")
+        if dev == "cpu":
+            require(same_stats(pc.stats(), apc.stats(), "cuda", "cpu"),
+                    f"fleet: {pc.stats()} / {apc.stats()}")
+    print(f"[fleet] per-worker SliceReports and FleetSummary == the same "
+          f"fleet with decode=False on cuda and on cpu; pc.stats() == cpu "
+          f"but the device: {pc.stats()}")
+    print(f"[fleet] summary: completed {summary.n_completed}/"
+          f"{summary.n_submitted}, p99 {summary.p99_ms!r} ms (SLO "
+          f"{summary.slo_ms!r}), miss rate {summary.deadline_miss_rate!r}, "
+          f"{summary.migrations} migrating slices, energy "
+          f"{summary.energy_uj!r} uJ")
+
+    from repro_torch.kernels.pim_mac.ops import pim_matmul
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((16, cfg.d_model), generator=gen, device="cuda")
+    before = pim_matmul.launches
+    widths = {}
+    for w in fl.workers:
+        eng = w.hetero
+        require(len(eng._tiered) == 2 * cfg.n_layers,
+                f"worker {w.wid}: {len(eng._tiered)} matrices tiered")
+        y = eng.tiered_forward(x)
+        require(y.shape == (16, cfg.d_ff) and bool(torch.isfinite(y).all()),
+                f"worker {w.wid}: tiered_forward {tuple(y.shape)}")
+        for name, n in check_tiered_forward(eng, x, y).items():
+            widths.setdefault(name, set()).add(n)
+    torch.cuda.synchronize()
+    run["launches"]["pim_mac"] = pim_matmul.launches - before
+    require(run["launches"]["pim_mac"] > 0, "pim_mac never launched on "
+            "the fleet's tiers")
+    print(f"[fleet] every worker's tiered_forward (16, {cfg.d_model}): "
+          f"int8 tiers == cpu; tier widths "
+          f"{ {k: sorted(v) for k, v in widths.items()} }; launches on the "
+          f"fleet path {run['launches']}")
+    del fl, run["fleet"], params
+    torch.cuda.empty_cache()
+    out["fleet"] = {k: run[k] for k in ("bring_up_ms", "lut_ms", "d2h",
+                                        "launches")}
+    out["fleet"]["slice_ms_p50"] = nearest_rank(run["slice_ms"], 50)
+    out["fleet"]["slice_ms_p99"] = nearest_rank(run["slice_ms"], 99)
+    out["fleet_hierarchy_launches"] = hierarchy_check(cfg)
+    out["fleet_dag_launches"] = dag_check(cfg)
+
+
 def timed(label: str, fn, *args) -> None:
     t0 = time.perf_counter()
     fn(*args)
@@ -1525,36 +1857,48 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("families smoke", phase_families_smoke, out)
         timed("families full width", phase_families_full, out)
+        timed("fleet", phase_fleet, scfg, card, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
 
     main_t = out["timings"]["gpu-pool grid"]
+    # launches on each driven path, each counted from 0 just before it
+    by_path = {k: {"placement main path": out["launches"].get(k, 0),
+                   "fleet (internlm2_1_8b, decode)":
+                       out["fleet"]["launches"][k],
+                   "hierarchical fleet": out["fleet_hierarchy_launches"][k],
+                   "dag fleet": out["fleet_dag_launches"][k]}
+               for k in ("dp_stages", "minplus_combine")}
+    by_path["pim_mac"] = {
+        "internlm2_1_8b serving": out["pim_launches"],
+        "recurrentgemma_2b serving": out["pim_launches_rg"],
+        "fleet (internlm2_1_8b, decode)": out["fleet"]["launches"]["pim_mac"]}
     kernels = [
         dict(name="dp_stages", route="cuda",
              source="src/repro_torch/csrc/dp_stages.cu",
              replaces="src/repro/kernels/knapsack_dp/kernel.py:34 "
                       "(_dp_kernel); src/repro/kernels/lut_pipeline/"
                       "kernel.py:69 (_fused_kernel, stage part)",
-             launches=out["launches"]["dp_stages"],
+             launches=sum(by_path["dp_stages"].values()),
+             launches_by_path=by_path["dp_stages"],
              max_abs_err=out["max_abs_err"]["dp_stages"],
              library_ms=None, **main_t["dp_stages"]),
         dict(name="minplus_combine", route="cuda",
              source="src/repro_torch/csrc/minplus_combine.cu",
              replaces="src/repro/kernels/lut_pipeline/kernel.py:69 "
                       "(_fused_kernel, fold/combine/backtrace part)",
-             launches=out["launches"]["minplus_combine"],
+             launches=sum(by_path["minplus_combine"].values()),
+             launches_by_path=by_path["minplus_combine"],
              max_abs_err=out["max_abs_err"]["minplus_combine"],
              library_ms=None, **main_t["minplus_combine"]),
         dict(name="pim_mac", route="cuda",
              source="src/repro_torch/csrc/pim_mac.cu",
              replaces="src/repro/kernels/pim_mac/kernel.py:25 "
                       "(_pim_mac_kernel)",
-             launches=out["pim_launches"] + out["pim_launches_rg"],
-             launches_by_path={
-                 "internlm2_1_8b serving": out["pim_launches"],
-                 "recurrentgemma_2b serving": out["pim_launches_rg"]},
+             launches=sum(by_path["pim_mac"].values()),
+             launches_by_path=by_path["pim_mac"],
              max_abs_err=out["max_abs_err"]["pim_mac"],
              at_recurrentgemma_shape=out["pim_time_rg"],
              **out["pim_time"]),

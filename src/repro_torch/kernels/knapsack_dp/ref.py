@@ -42,24 +42,32 @@ def dp_stages_ref(t_items: torch.Tensor, e_items: torch.Tensor,
     are updated together; every element still gets exactly the one add
     and the one min of the recurrence, so the bits equal a row-by-row
     loop's.
+
+    The rows are read with ``index_select`` on the flattened tables:
+    advanced indexing runs a CPU kernel whose thread pool spins, and
+    with several processes on the CPU (parallel test workers) each of
+    the loop's small reads then took over 1000x longer.
     """
     V, C, n = t_items.shape
     dev = e_items.device
     stages = torch.empty((V, C, n + 1, T + 1, K + 1), dtype=torch.float32,
                          device=dev)
     stages[:, :, 0] = base_stage(T, K, device=dev)
-    vi = torch.arange(V, device=dev).view(V, 1, 1)
-    ci = torch.arange(C, device=dev).view(1, C, 1)
+    rows = stages.view(-1, K + 1)              # (V * C * (n+1) * (T+1), K+1)
+    table = (torch.arange(V * C, device=dev) * (n + 1)).view(V, C, 1)
     for i in range(n):
         out = stages[:, :, i + 1]
         out.copy_(stages[:, :, i])
+        first = (table + i + 1) * (T + 1)      # row 0 of stage i+1, (V, C, 1)
         t_i = t_items[:, :, i].long()                          # (V, C)
         e_i = e_items[:, :, i].view(V, C, 1, 1)
         step = int(t_i.min())
         for t0 in range(0, T + 1, step):
             t = torch.arange(t0, min(t0 + step, T + 1), device=dev)
             src = t.view(1, 1, -1) - t_i.unsqueeze(-1)         # (V, C, S)
-            prev = out[vi, ci, src.clamp(min=0)][..., :-1]     # (V, C, S, K)
+            prev = rows.index_select(
+                0, (first + src.clamp(min=0)).view(-1)).view(
+                V, C, -1, K + 1)[..., :-1]                     # (V, C, S, K)
             take = torch.where((src >= 0).unsqueeze(-1), prev + e_i, INF)
             t1 = t0 + t.numel()
             out[:, :, t0:t1, 1:] = torch.minimum(out[:, :, t0:t1, 1:], take)

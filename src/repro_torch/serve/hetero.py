@@ -264,11 +264,18 @@ class HeteroServeEngine:
         self._pos += 1
         return toks
 
-    def run_slice(self, n_requests: int) -> HeteroSliceResult:
+    def run_slice(self, n_requests: int, *,
+                  lookup_tasks: Optional[int] = None,
+                  cap_to_capacity: bool = False) -> HeteroSliceResult:
         """One time slice: schedule ``n_requests`` tasks, re-tier the
-        weights to the chosen placement and decode one token each."""
+        weights to the chosen placement and decode one token each.
+        ``lookup_tasks`` consults the placement LUT on a predicted load
+        instead of the actual backlog (proactive migration);
+        ``cap_to_capacity`` executes only what fits in the slice (the
+        report's ``n_executed``), for fleet-style carryover queueing."""
         n_tasks = int(np.ceil(n_requests))
-        report = self.sched.step(n_tasks)
+        report = self.sched.step(n_tasks, lookup_tasks=lookup_tasks,
+                                 cap_to_capacity=cap_to_capacity)
         retiered = self._retier(report.placement)
         toks = self._decode_tokens(min(report.n_done, self.max_batch)) \
             if report.n_done else np.zeros((0,), np.int32)

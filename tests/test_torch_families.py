@@ -51,6 +51,11 @@ AUX_ATOL = 1e-6
 # input difference on ~1.3x larger, so the stack multiplies that
 # rounding by up to sum(1.3^i, i < 16) ~ 170: 2.6e-4, bounded by 5e-4
 XLSTM_STACK_ATOL = 5e-4
+# bf16 prefill + decode against forward: the port's gap (largest
+# difference over the largest |logit|) may exceed the reference's by at
+# most 8 bf16 roundings of an O(1) logit (the card's per-block bound in
+# chip_smoke.py)
+BF16_GAP_MARGIN = 8 * 2.0 ** -8
 
 FAMILIES = ["arctic_480b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
             "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b"]
@@ -192,3 +197,45 @@ def test_xlstm_blocks_one_by_one_match_jax():
         x, _ = jax_lm.apply_block(pj["stack"][name], x, cfg_j, kind,
                                   positions=pos)
         _close(yt, x, ACT_ATOL)
+
+
+def _bf16_decode_gap(mod, xp, params, cfg, toks):
+    """prefill of 8 tokens and a decode step per later token against
+    ``forward`` on all of them: the largest difference over the largest
+    |logit|, and the argmax agreement."""
+    full, _ = mod.forward(params, cfg, toks)
+    logits, st = mod.prefill(params, cfg, toks[:, :8], max_len=32)
+    steps = [logits]
+    for t in range(8, toks.shape[1]):
+        logits, st = mod.decode_step(params, cfg, st, toks[:, t], xp(t))
+        steps.append(logits)
+    steps = np.stack([_wide(s) for s in steps], 1)
+    ref = _wide(full)[:, 7:]
+    return (float(np.abs(steps - ref).max() / np.abs(ref).max()),
+            float((steps.argmax(-1) == ref.argmax(-1)).mean()))
+
+
+def _wide(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_xlstm_bf16_decode_gap_within_the_references(seed):
+    """xlstm's smoke model in bf16 (same weights, same tokens): the
+    port's gap between prefill + decode and ``forward`` is at most the
+    reference's plus BF16_GAP_MARGIN. On the CPU the port's two paths
+    agree bitwise (gap 0.0) where the reference's differ by 0.008-0.025
+    of the largest logit."""
+    cfg_j, cfg_t = _configs("xlstm_1_3b", (("dtype", jnp.bfloat16),))
+    cfg_t = dataclasses.replace(cfg_t, dtype=torch.bfloat16)
+    pj = jax_lm.init_lm(jax.random.PRNGKey(seed), cfg_j)
+    pt = lm.params_from_numpy(_numpy_tree(pj), "cpu")
+    toks = np.random.default_rng(seed).integers(
+        0, cfg_j.vocab_size, (4, 16)).astype(np.int32)
+    ref, ref_agree = _bf16_decode_gap(jax_lm, jnp.int32, pj, cfg_j,
+                                      jnp.asarray(toks))
+    ours, agree = _bf16_decode_gap(lm, int, pt, cfg_t, _t(toks).long())
+    assert ours <= ref + BF16_GAP_MARGIN, (ours, ref)
+    assert agree >= ref_agree - 1 / 36, (agree, ref_agree)

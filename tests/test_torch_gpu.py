@@ -342,3 +342,72 @@ def test_cuda_families_match_cpu(arch):
         assert a.shape == b.shape
         err = float((a - b).abs().max())
         assert err <= FAMILY_ATOL, (arch, i, err)
+
+
+# -- the serving fleet, CUDA against the CPU ---------------------------------
+
+
+def _fleet_run(dev, params, cfg):
+    """A 2-engine gpu-pool-mixed smoke fleet (dp LUTs, DVFS grid,
+    decode=True) on ``dev`` over 8 slices of an mmpp trace."""
+    from repro_torch import api
+    from repro_torch.fleet import make_trace, summarize
+    pc = api.compiler(device=dev)
+    fl = api.fleet("gpu-pool-mixed", cfg, n_engines=2, params=_to(params, dev),
+                   decode=True, solver="dp", dvfs=True, forecaster="holt",
+                   max_batch=4, compiler=pc, device=dev)
+    res = fl.run(make_trace("mmpp", n_slices=8, seed=0))
+    return fl, res, summarize(res), pc
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_matches_cpu():
+    """The fleet's LUTs built by the two placement kernels and its
+    workers' tiers: the same reports, summary and build counts as on the
+    CPU, every int8 tier and scale bitwise, and ``tiered_forward``'s
+    int8 columns through ``pim_mac`` bitwise to the same segments
+    composed on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.models.hetero_linear import tiered_matmul
+    dev = _card()
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    n0, m0 = kops.dp_stages.launches, lops.minplus_combine.launches
+    ours = _fleet_run(dev, params, cfg)
+    assert kops.dp_stages.launches > n0
+    assert lops.minplus_combine.launches > m0
+    ref = _fleet_run(torch.device("cpu"), params, cfg)
+    assert dataclasses.asdict(ours[1]) == dataclasses.asdict(ref[1])
+    assert ours[2] == ref[2]
+    a, b = ours[3].stats(), ref[3].stats()
+    assert a.pop("builds_by_backend") == {"cuda": a["builds"]}
+    assert b.pop("builds_by_backend") == {"cpu": b["builds"]}
+    assert a == b
+    x = torch.randn((16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    p0 = pops.pim_matmul.launches
+    for wt, wr in zip(ours[0].workers, ref[0].workers, strict=True):
+        assert list(wt.hetero._tiered) == list(wr.hetero._tiered)
+        for key, segs in wr.hetero._tiered.items():
+            for tier, seg in segs.items():
+                for f in ("q", "scale"):
+                    if f in seg:
+                        assert torch.equal(wt.hetero._tiered[key][tier][f]
+                                           .cpu(), seg[f]), (key, tier, f)
+        segs = wt.hetero._tiered[next(iter(wt.hetero._tiered))]
+        y = wt.hetero.tiered_forward(x.to(dev)).cpu()
+        cpu_segs = {k: {f: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                        for f, v in s.items()} for k, s in segs.items()}
+        y_cpu = tiered_matmul(x, cpu_segs)
+        off = 0
+        for s in segs.values():
+            if s.get("empty"):
+                continue
+            n = (s["q"] if "q" in s else s["w"]).shape[1]
+            if "q" in s:
+                assert torch.equal(y[:, off:off + n], y_cpu[:, off:off + n])
+            off += n
+    assert pops.pim_matmul.launches > p0

@@ -29,7 +29,10 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.kernels.pim_mac.ops", "repro_torch.quant.int8",
               "repro_torch.models.lm", "repro_torch.models.hetero_linear",
               "repro_torch.models.moe", "repro_torch.models.recurrent",
-              "repro_torch.serve.engine", "repro_torch.launch.serve"):
+              "repro_torch.serve.engine", "repro_torch.launch.serve",
+              "repro_torch.fleet.router", "repro_torch.fleet.hierarchy",
+              "repro_torch.fleet.dag", "repro_torch.launch.fleet",
+              "repro_torch.launch.obs"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
