@@ -102,11 +102,32 @@ H100; the kernels are built for sm_90a). Phases:
      engines, C=3) on the card against the CPU: the same assignments,
      scale events (new workers paying 0 LUT builds), summaries and
      ``DagResult``;
-  11. print each phase's seconds, the ``{"kernels": [...]}`` line (each
+  11. training (slice D) with every launch count set to 0 just before
+     it: loss and gradients of every family that trains (dense, MoE,
+     RG-LRU, xLSTM, VLM with prefix embeddings, encoder-decoder with
+     encoder frames) at smoke size in fp32 (TF32 off) on the card
+     against the CPU, the loss within 1e-5 (xlstm 5e-4) and each
+     gradient leaf within 1e-4 of its largest entry (xlstm 1e-3); three
+     ``Trainer`` steps on the dense smoke model against the CPU, with and
+     without int8 gradient compression; a resume (checkpoint at step 2, a
+     fresh Trainer's steps 3-4 equal to the uninterrupted run's); then
+     internlm2_1_8b at full width and depth as ``launch/train.py --full``
+     builds it (bf16 compute, fp32 params, scanned, remat; AdamW), 4
+     Trainer steps at S=1024, B=8: parameter and state bytes, peak
+     memory, each step's host-clock and CUDA-event time, tokens/s, the
+     model-FLOP share of the dense bf16 peak, and a fifth step under
+     torch.profiler (device busy time, idle share); one ``make_train_step``
+     step with 8 microbatches on the same params and batch within 2e-2 of
+     the first loss; a 2-layer fp32 model at full width, loss and
+     gradients on the card against the CPU; ``python -m
+     repro_torch.launch.train --device cuda`` as a subprocess. Every
+     launch count must still be 0 after (training reaches no kernel);
+  12. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
-     in total and per driven path; ``pim_mac`` also its comparison with
-     the library call at M=32 under ``at_library_shape`` and its
-     recurrentgemma row under ``at_recurrentgemma_shape``) and, last,
+     in total and per driven path, ``train`` among them; ``pim_mac``
+     also its comparison with the library call at M=32 under
+     ``at_library_shape`` and its recurrentgemma row under
+     ``at_recurrentgemma_shape``) and, last,
      the ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line, as does a machine
@@ -119,6 +140,7 @@ import dataclasses
 import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1801,6 +1823,402 @@ def phase_fleet(cfg, card: str, out: dict) -> None:
     out["fleet_dag_launches"] = dag_check(cfg)
 
 
+# -- training (slice D) -------------------------------------------------------
+
+TRAIN_FAMILIES = ["internlm2_1_8b", "arctic_480b", "llama4_scout_17b_a16e",
+                  "recurrentgemma_2b", "xlstm_1_3b", "pixtral_12b",
+                  "seamless_m4t_medium"]
+# fp32 smoke models (TF32 off), cuda against cpu: a loss is a mean of
+# O(10) log-probabilities, each a sum of at most a few hundred terms in
+# another order; a gradient leaf is held against its own largest entry.
+# xlstm's 16-block stack amplifies each block's rounding (its logits are
+# held at 5e-4 against the reference on the CPU)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+XLSTM_LOSS_RTOL = 5e-4
+XLSTM_GRAD_RTOL = 1e-3
+# a leaf whose CPU gradient is below this share of the tree's largest |g|
+# is cancellation noise (the mLSTM input-gate bias, analytically ~0, at
+# most 3.1e-9 of it on the CPU) and is held to that level on the card,
+# not to its own size
+GRAD_NOISE_SHARE = 1e-7
+# three Trainer steps, cuda against cpu, with and without int8 gradient
+# compression: each AdamW update is about lr * sign(g), so an entry whose
+# gradient is rounding noise moves by up to 2 * lr in one run against the
+# other; the loss feels that far below 1e-4 of its value
+TRAINER_RTOL = 1e-4
+# the full-width step with 8 microbatches against the Trainer's first
+# step: the same loss on the same params and batch, in bf16 at another
+# batch shape
+MICRO_RTOL = 2e-2
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate at 700 W
+BF16_FLOPS_PER_S = 989e12
+TRAIN_FULL_STEPS = 4
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+
+
+def train_batch(cfg, B: int, S: int, gen) -> dict:
+    """A next-token batch and the family's extra inputs, on the CPU."""
+    import torch
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.n_prefix_embeds:
+        b["prefix_embeds"] = torch.randn(
+            (B, cfg.n_prefix_embeds, cfg.d_model), generator=gen)
+    if cfg.is_encdec:
+        b["enc_frames"] = torch.randn((B, 5, cfg.d_model), generator=gen)
+    return b
+
+
+def loss_and_grads(cfg, params, batch):
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+    (loss, _), grads = value_and_grad(make_loss_fn(cfg), params, batch)
+    return float(loss), grads
+
+
+def compare_grads(gc, gr, rtol: float) -> dict:
+    """Card gradients ``gc`` against CPU gradients ``gr`` leaf by leaf:
+    the largest error over a leaf's largest |g|, the noise leaves, and
+    how many entries have opposite signs (AdamW's first update is about
+    lr * sign(g), so each moves a param by up to 2 * lr). Compared on
+    the card: the CPU gradients are copied there."""
+    from repro_torch.tree import flatten_with_path
+    pairs = [(p, a, b.to(a.device)) for (p, a), (_, b) in
+             zip(flatten_with_path(gc), flatten_with_path(gr))]
+    top = max(float(b.abs().max()) for _, _, b in pairs)
+    worst, noise, flips = 0.0, 0, 0
+    for path, a, b in pairs:
+        require(a.shape == b.shape, f"grad {path}: {a.shape} != {b.shape}")
+        leaf = float(b.abs().max())
+        flips += int(((a > 0) & (b < 0) | (a < 0) & (b > 0)).sum())
+        if leaf <= GRAD_NOISE_SHARE * top:
+            noise += 1
+            require(float(a.abs().max()) <= GRAD_NOISE_SHARE * top,
+                    f"noise leaf {path}: {float(a.abs().max())}")
+            continue
+        rel = max_abs_err(a, b) / leaf
+        require(rel <= rtol, f"grad {path}: {rel} of its max |g|")
+        worst = max(worst, rel)
+    return dict(grad_rel=worst, noise_leaves=noise, sign_flips=flips,
+                leaves=len(pairs))
+
+
+def smoke_trainer(cfg, dev: str, params, steps: int, total: int,
+                  compression=False, ckpt_dir=None, ckpt_every=50):
+    """A Trainer on ``dev`` that starts from a copy of ``params`` (the
+    optimizer writes the params in place)."""
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.optim.compression import init_error_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+    t = Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=2,
+                                     total_steps=total),
+                DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                           global_batch=8),
+                TrainerConfig(steps=steps, ckpt_every=ckpt_every,
+                              ckpt_dir=ckpt_dir,
+                              grad_compression=compression), device=dev)
+    if params is not None:
+        t.params = tree_map(lambda x: x.to(dev, copy=True), params)
+        t.opt_state = t.opt.init(t.params)
+        if compression:
+            t.error_state = init_error_state(t.params)
+    return t
+
+
+def train_smoke() -> None:
+    """Every family that trains, smoke size, fp32: loss and gradients on
+    the card against the CPU; then Trainer steps (plain, compressed) and
+    a resume on the dense smoke model."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in TRAIN_FAMILIES:
+        cfg = get_smoke_config(arch)
+        params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+        batch = train_batch(cfg, 2, 8, torch.Generator().manual_seed(1))
+        lr_, gr = loss_and_grads(cfg, params, batch)
+        lc, gc = loss_and_grads(cfg, _tree_to(params, "cuda"),
+                                _tree_to(batch, "cuda"))
+        xl = arch == "xlstm_1_3b"
+        loss_rtol = XLSTM_LOSS_RTOL if xl else TRAIN_LOSS_RTOL
+        rel = abs(lc - lr_) / abs(lr_)
+        cmp = compare_grads(gc, gr, XLSTM_GRAD_RTOL if xl
+                            else TRAIN_GRAD_RTOL)
+        extra = sorted(k for k in batch if k not in ("tokens", "labels"))
+        print(f"[train] {arch} smoke (L={cfg.n_layers} d={cfg.d_model}"
+              f"{' +' + '+'.join(extra) if extra else ''}): loss cpu "
+              f"{lr_!r} |cuda - cpu|/cpu {rel!r} (rtol {loss_rtol}); "
+              f"{cmp['leaves']} grad leaves, max err {cmp['grad_rel']!r} "
+              f"of the leaf's max |g|, {cmp['noise_leaves']} noise leaves, "
+              f"{cmp['sign_flips']} entries of opposite sign")
+        require(np.isfinite(lc) and rel <= loss_rtol,
+                f"{arch}: loss {lc} vs {lr_}")
+
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    for comp in (False, True):
+        card, cpu = (smoke_trainer(cfg, dev, params, 3, 3, compression=comp)
+                     for dev in ("cuda", "cpu"))
+        card.run()
+        cpu.run()
+        ours, ref = ([m["loss"] for m in t.metrics_log] for t in (card, cpu))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ours, ref))
+        print(f"[train] Trainer, 3 steps, dense smoke, grad_compression="
+              f"{comp}: losses cuda {ours} cpu {ref}; max rel diff {rel!r}")
+        require(len(ours) == 3 and all(np.isfinite(ours)) and
+                rel <= TRAINER_RTOL,
+                f"Trainer cuda vs cpu (compression={comp}): {rel}")
+    # resume: checkpoint at step 2, a fresh Trainer takes steps 3-4
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    try:
+        whole = smoke_trainer(cfg, "cuda", None, 4, 4)
+        whole.run()
+        first = smoke_trainer(cfg, "cuda", None, 2, 4,
+                              ckpt_dir=str(TRAIN_CKPT_DIR), ckpt_every=2)
+        first.run()
+        first._ckpt.close()
+        resumed = smoke_trainer(cfg, "cuda", None, 4, 4,
+                                ckpt_dir=str(TRAIN_CKPT_DIR), ckpt_every=2)
+        require(resumed.maybe_resume() and resumed.step == 2,
+                f"resume at step {resumed.step}")
+        resumed.run()
+        resumed._ckpt.close()
+        a = [m["loss"] for m in resumed.metrics_log]
+        b = [m["loss"] for m in whole.metrics_log[2:]]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        print(f"[train] resume: checkpoint at step 2, a fresh Trainer's "
+              f"steps 3-4 {a} vs the uninterrupted run's {b}: max rel "
+              f"diff {rel!r}")
+        require(len(a) == 2 and rel <= TRAIN_LOSS_RTOL, f"resume: {rel}")
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+
+
+KERNEL_CLASSES = [  # (class, substrings of a CUDA kernel's name), first match
+    ("gemm fp32", ("sgemm", "f32f32", "simt")),
+    ("gemm bf16", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("reduction", ("reduce",)),
+    ("index/scatter", ("index", "scatter", "gather")),
+    ("copy/cast", ("Memcpy", "Memset", "copy", "cat_")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def kernel_split(by_name: dict) -> dict:
+    """Device ms of a profiled window by kernel class (``KERNEL_CLASSES``;
+    the rest under "other")."""
+    split: dict = {}
+    for name, ms in by_name.items():
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in name for k in keys)), "other")
+        split[cls] = split.get(cls, 0.0) + ms
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def train_model_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """Model FLOPs of one training step (PaLM's MFU convention): 6 N T
+    for the weight matmuls, N the parameters less the embedding table (a
+    gather), T = B S tokens, plus 12 L H hd S T for attention's two
+    products, causal masking not discounted; remat's recompute is not
+    counted."""
+    T = B * S
+    n = n_params - cfg.vocab_size * cfg.d_model
+    return 6.0 * n * T + 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * S * T
+
+
+def train_full_width(card: str) -> None:
+    """internlm2_1_8b at full width and depth as ``launch/train.py
+    --full`` builds it, 4 Trainer steps at S=1024, B=8; then one
+    microbatched ``make_train_step`` step on the same params and batch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.launch.specs import dryrun_config
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptimizerConfig, make_optimizer
+    from repro_torch.train.step import (default_optimizer_kind,
+                                        default_train_memory_plan,
+                                        make_train_step)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dryrun_config(get_config("internlm2_1_8b"))
+    B, S = 8, 1024
+    ocfg = OptimizerConfig(kind=default_optimizer_kind(cfg), lr=1e-3,
+                           warmup_steps=10, total_steps=TRAIN_FULL_STEPS)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t = Trainer(cfg, ocfg, dcfg, TrainerConfig(steps=TRAIN_FULL_STEPS,
+                                               ckpt_dir=None), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(t.params))
+    state_bytes = model_bytes(t.params) + sum(
+        x.numel() * x.element_size() for x in _leaves(t.opt_state))
+    print(f"[train-full] {cfg.name}: L={cfg.n_layers} d={cfg.d_model} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size}, {n_params} params; "
+          f"dtype={cfg.dtype} scan_layers={cfg.scan_layers} remat="
+          f"{cfg.remat}; optimizer {ocfg.kind}; S={S} B={B} (chunked CE: "
+          f"{S // lm._CE_CHUNK} chunks of {lm._CE_CHUNK}); params + opt "
+          f"state {state_bytes} bytes ({time.perf_counter() - t0:.2f} s)")
+    events = []
+    step_fn = t._step_fn
+
+    def timed_step(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = step_fn(*a)
+        end.record()
+        events.append((start, end))
+        return r
+    t._step_fn = timed_step
+    summary = t.run()
+    torch.cuda.synchronize()
+    losses = [m["loss"] for m in t.metrics_log]
+    host_ms = [x * 1e3 for x in t.step_times]
+    event_ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.median(host_ms[1:]))
+    flops = train_model_flops(cfg, n_params, B, S)
+    mfu = flops / (steady * 1e-3) / BF16_FLOPS_PER_S
+    print(f"[train-full] losses {losses}; host-clock step ms (ending in "
+          f".item()) {host_ms}; CUDA-event step ms {event_ms}; "
+          f"max_memory_allocated {peak} bytes")
+    print(f"[train-full] steps 2-{TRAIN_FULL_STEPS} median {steady!r} ms: "
+          f"{B * S / (steady * 1e-3)!r} tokens/s; model FLOPs per step "
+          f"{flops!r} (6 N T + 12 L H hd S T, N = params less the "
+          f"embedding table, T = B S) = {flops / (steady * 1e-3) / 1e12!r}"
+          f" TFLOP/s, {mfu!r} of the dense bf16 peak "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s ({card})")
+    require(len(losses) == TRAIN_FULL_STEPS and all(
+        np.isfinite(losses)), f"full-width losses {losses}")
+    require(summary["steps"] == TRAIN_FULL_STEPS, f"{summary}")
+    # one more step under the profiler: device busy time and idle share
+    t._step_fn = step_fn
+    t.tcfg.steps += 1
+    prof = profile_device(t.run)
+    if prof["by_name"]:
+        print(f"[train-full] profiled step {t.step}: device busy "
+              f"{prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms, idle "
+              f"share {1 - prof['busy_ms'] / prof['wall_ms']!r} (the "
+              f"profiler's host cost included; against the unprofiled "
+              f"median {steady!r} ms: {1 - prof['busy_ms'] / steady!r})")
+        split = kernel_split(prof["by_name"])
+        print("[train-full] device ms by kernel class: " + "; ".join(
+            f"{k} {v:.2f}" for k, v in split.items()))
+        top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1])[:12]
+        print("[train-full] top device kernels (ms): " + "; ".join(
+            f"{n.replace('void at::native::', '')[:150]} {v:.2f}"
+            for n, v in top))
+    else:
+        print("[train-full] profiled step: not measured (no CUDA activity "
+              "traced)")
+    first_loss = losses[0]
+    del t, events, step_fn
+    torch.cuda.empty_cache()
+
+    # the microbatched step from the same seed on batch 0
+    plan = default_train_memory_plan(cfg, B)
+    params = lm.init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+    opt = make_optimizer(ocfg)
+    step = make_train_step(cfg, opt, **plan)
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in SyntheticLM(dcfg).batch(0).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step(params, opt.init(params), batch)
+    loss = metrics["loss"].item()
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = abs(loss - first_loss) / abs(first_loss)
+    print(f"[train-full] make_train_step with {plan['num_microbatches']} "
+          f"microbatches ({plan['accum_dtype']} accumulation): loss {loss!r}"
+          f" vs the Trainer's first {first_loss!r}, rel {rel!r} (rtol "
+          f"{MICRO_RTOL}); {ms:.1f} ms with the optimizer's state init")
+    require(np.isfinite(loss) and rel <= MICRO_RTOL,
+            f"microbatched loss {loss} vs {first_loss}")
+    del params, batch
+    torch.cuda.empty_cache()
+
+
+def train_full_width_parity() -> None:
+    """A 2-layer fp32 internlm2 at full width: one loss + gradient on the
+    card against the CPU (gradients, not updated params: AdamW's first
+    update is about lr * sign(g))."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), n_layers=2,
+                              dtype=torch.float32, scan_layers=False,
+                              remat=False)
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator().manual_seed(3), cfg)
+    batch = train_batch(cfg, 2, 128, torch.Generator().manual_seed(4))
+    lr_, gr = loss_and_grads(cfg, params, batch)
+    cpu_s = time.perf_counter() - t0
+    lc, gc = loss_and_grads(cfg, _tree_to(params, "cuda"),
+                            _tree_to(batch, "cuda"))
+    rel = abs(lc - lr_) / abs(lr_)
+    cmp = compare_grads(gc, gr, TRAIN_GRAD_RTOL)
+    n = sum(x.numel() for x in _leaves(params))
+    print(f"[train-full] 2-layer fp32 internlm2 at full width ({n} params, "
+          f"B=2 S=128): loss cpu {lr_!r} |cuda - cpu|/cpu {rel!r}; "
+          f"{cmp['leaves']} grad leaves within {cmp['grad_rel']!r} of each "
+          f"leaf's max |g| (rtol {TRAIN_GRAD_RTOL}), {cmp['noise_leaves']} "
+          f"noise leaves; {cmp['sign_flips']} of {n} gradient entries have "
+          f"opposite signs on the two devices ({cpu_s:.1f} s on the CPU)")
+    require(rel <= TRAIN_LOSS_RTOL, f"2-layer loss {lc} vs {lr_}")
+    del params, gr, gc
+    torch.cuda.empty_cache()
+
+
+def train_cli() -> None:
+    """``python -m repro_torch.launch.train`` on the card, 3 steps."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "internlm2_1_8b", "--steps", "3", "--device", "cuda"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ,
+                                               PYTHONPATH=str(ROOT / "src")))
+    print(f"[train] {' '.join(cmd[1:])}: exit {res.returncode} "
+          f"({time.perf_counter() - t0:.1f} s): "
+          f"{res.stdout.strip().splitlines()}")
+    require(res.returncode == 0, f"launch.train failed: {res.stderr}")
+
+
+def phase_training(card: str, out: dict) -> None:
+    """Training (slice D) with every kernel's launch count set to 0: the
+    smoke families, the Trainer and a resume against the CPU, full-width
+    internlm2_1_8b steps, a full-width gradient against the CPU and the
+    CLI. Training reaches none of the port's kernels: every count must
+    still be 0 after."""
+    zero_kernel_counts()
+    timed("training/smoke", train_smoke)
+    timed("training/full width", train_full_width, card)
+    timed("training/full-width gradient", train_full_width_parity)
+    timed("training/cli", train_cli)
+    out["train_launches"] = kernel_counts()
+    print(f"[train] kernel launches over the training phase: "
+          f"{out['train_launches']}")
+    require(not any(out["train_launches"].values()),
+            f"training launched a kernel: {out['train_launches']}")
+
+
 def timed(label: str, fn, *args) -> None:
     t0 = time.perf_counter()
     fn(*args)
@@ -1858,6 +2276,7 @@ def main() -> int:
         timed("families smoke", phase_families_smoke, out)
         timed("families full width", phase_families_full, out)
         timed("fleet", phase_fleet, scfg, card, out)
+        timed("training", phase_training, card, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1875,6 +2294,8 @@ def main() -> int:
         "internlm2_1_8b serving": out["pim_launches"],
         "recurrentgemma_2b serving": out["pim_launches_rg"],
         "fleet (internlm2_1_8b, decode)": out["fleet"]["launches"]["pim_mac"]}
+    for k in by_path:
+        by_path[k]["train"] = out["train_launches"][k]
     kernels = [
         dict(name="dp_stages", route="cuda",
              source="src/repro_torch/csrc/dp_stages.cu",

@@ -12,13 +12,18 @@ The param and decode-state trees keep the JAX package's layout exactly:
 ``p{i}`` block per kind of the period, every leaf with a leading group
 axis, looped over in Python here) and/or unscanned ``"tail_i"`` blocks,
 as ``_stack_layout`` decides. ``cfg.scan_layers`` therefore picks the
-tree layout only; ``cfg.remat`` has no effect (both are XLA compile
-switches). Code that walks the trees (the serve engine's re-tiering, the
-decode engine's state scatter) sees the same keys as in the JAX package.
+tree layout only. ``cfg.remat`` checkpoints each block of a
+full-sequence stack (``torch.utils.checkpoint``, as ``jax.checkpoint``
+does) while autograd records, so a training step keeps only the blocks'
+inputs and recomputes the rest in the backward pass; serving and decode
+run without it. Code that walks the trees (the serve engine's
+re-tiering, the decode engine's state scatter) sees the same keys as in
+the JAX package.
 
 :func:`params_from_numpy` carries a JAX param tree (numpy leaves) over,
-so both packages can run the same weights. Training (``loss_fn``) is not
-ported yet.
+so both packages can run the same weights. :func:`loss_fn` is the
+training loss (next-token cross-entropy, chunked over the sequence as
+in the reference).
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
@@ -179,6 +186,16 @@ def _index_tree(tree: PyTree, i: int) -> PyTree:
     return tree[i]
 
 
+def _unbind_tree(tree: PyTree, n: int) -> List[PyTree]:
+    """The ``n`` groups of a stacked tree, as views. One ``unbind`` per
+    leaf: its backward stacks the groups' gradients once, where indexing
+    each group would add a zero-padded full-size gradient per group."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind_tree(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 def _write_back(views: PyTree, new: PyTree) -> None:
     """Copy a group's new state into its views of the stacked leaves,
     where the block returned new tensors (recurrent state) rather than
@@ -209,13 +226,19 @@ def _apply_stack(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, the blocks' summed aux loss as an fp32 scalar)."""
     n_groups, period, tail = _stack_layout(cfg)
-    blocks = [(_index_tree(params["scan"], gi)[f"p{i}"], kind)
-              for gi in range(n_groups) for i, kind in enumerate(period)]
+    groups = _unbind_tree(params["scan"], n_groups) if n_groups else []
+    blocks = [(g[f"p{i}"], kind) for g in groups
+              for i, kind in enumerate(period)]
     blocks += [(params[f"tail_{i}"], kind) for i, kind in enumerate(tail)]
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk, kind in blocks:
-        x, a = apply_block(blk, x, cfg, kind, positions=positions,
-                           enc_out=enc_out, causal=causal)
+        kw = dict(cfg=cfg, kind=kind, positions=positions, enc_out=enc_out,
+                  causal=causal)
+        if remat:
+            x, a = checkpoint(apply_block, blk, x, use_reentrant=False, **kw)
+        else:
+            x, a = apply_block(blk, x, **kw)
         aux_total = aux_total + a
     return x, aux_total
 
@@ -356,6 +379,63 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, prefix_embeds=None,
     """Like forward() but stops at the final norm (no vocab projection)."""
     x, aux = _forward_stack(params, cfg, tokens, prefix_embeds, enc_frames)
     return rms_norm(x, params["final_ln"], cfg.norm_eps), aux
+
+
+_CE_CHUNK = 512
+
+
+def _ce_sum(hx, head, tx, mx) -> torch.Tensor:
+    """Masked sum of the next-token negative log-likelihoods of one
+    stretch of hidden states."""
+    logits = (hx @ head).float()
+    logp = F.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, tx.long()[..., None])[..., 0]
+    return torch.sum(nll * mx)
+
+
+def _chunked_ce(h, head, targets, mask, n_chunks: int) -> torch.Tensor:
+    """Cross-entropy over sequence chunks: the (B, S, vocab) logits tensor
+    is never materialized whole (multi-GiB at 256k vocabs); each chunk's
+    logits are recomputed in the backward pass (checkpoint). The chunks'
+    sums are added to a carry in order, as the reference's scan does."""
+    B, S, d = h.shape
+    c = S // n_chunks
+    hc = h.reshape(B, n_chunks, c, d).transpose(0, 1)
+    tc = targets.reshape(B, n_chunks, c).transpose(0, 1)
+    mc = mask.reshape(B, n_chunks, c).transpose(0, 1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        total = total + checkpoint(_ce_sum, hc[i], head, tc[i], mc[i],
+                                   use_reentrant=False)
+    return total
+
+
+def loss_fn(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+    """Next-token cross-entropy (text positions only for vlm prefixes).
+    Returns (loss + 0.01 * the MoE load-balance loss, {"loss", "aux",
+    "tokens"})."""
+    h, aux = forward_hidden(params, cfg, batch["tokens"],
+                            prefix_embeds=batch.get("prefix_embeds"),
+                            enc_frames=batch.get("enc_frames"))
+    P = 0 if batch.get("prefix_embeds") is None else \
+        batch["prefix_embeds"].shape[1]
+    h = h[:, P:, :]
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]).to(cfg.dtype)
+    targets = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=h.device)
+    S = h.shape[1]
+    n_chunks = S // _CE_CHUNK if S % _CE_CHUNK == 0 and S > _CE_CHUNK else 1
+    if n_chunks > 1:
+        total_nll = _chunked_ce(h, head, targets, mask, n_chunks)
+    else:
+        total_nll = _ce_sum(h, head, targets, mask)
+    loss = total_nll / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux, "tokens": torch.sum(mask)}
 
 
 # -- decode -----------------------------------------------------------------

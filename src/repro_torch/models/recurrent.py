@@ -3,13 +3,14 @@ xLSTM's mLSTM / sLSTM cells.
 
 Training/prefill runs each recurrence as a sequential loop over time in
 fp32: the JAX package's ``lax.associative_scan`` (RG-LRU) and two-level
-checkpointed ``lax.scan`` (``chunked_scan``) compute the same recurrences
-(the associative scan in another association order, so RG-LRU outputs
-differ from it by fp32 rounding only: within 1e-5 of the reference per
-block in fp32, tests/test_torch_family_modules.py). Decode is a single
-state update - this is what makes the state O(1) in context for these
-archs - and equals the sequential loop's step. Every update keeps the
-reference's fp32 / compute-dtype casts.
+checkpointed ``lax.scan`` (``chunked_scan``, whose 128-step chunks are
+checkpointed here too while autograd records) compute the same
+recurrences (the associative scan in another association order, so
+RG-LRU outputs differ from it by fp32 rounding only: within 1e-5 of the
+reference per block in fp32, tests/test_torch_family_modules.py).
+Decode is a single state update - this is what makes the state O(1) in
+context for these archs - and equals the sequential loop's step. Every
+update keeps the reference's fp32 / compute-dtype casts.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.models.mlp import _gelu
@@ -28,16 +30,39 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def chunked_scan(f, init, xs):
-    """``lax.scan`` over the leading axis of every tensor of ``xs``:
-    returns (final carry, stacked per-step outputs). The JAX package's
-    chunked checkpointing saves memory for the backward pass only and
-    computes the same values."""
-    carry, ys = init, []
+_SCAN_CHUNK = 128
+
+
+def _scan(f, carry, xs):
+    ys = []
     for t in range(xs[0].shape[0]):
         carry, y = f(carry, tuple(x[t] for x in xs))
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+def chunked_scan(f, init, xs, chunk: int = _SCAN_CHUNK):
+    """``lax.scan`` over the leading axis of every tensor of ``xs``:
+    returns (final carry, stacked per-step outputs).
+
+    A flat loop over S steps saves the carry at every step for the
+    backward pass - O(S x state) residuals, catastrophic for
+    matrix-memory cells (mLSTM state is (B,H,hd,hd)). While autograd
+    records, a sequence of several whole chunks is run chunk by chunk
+    under ``torch.utils.checkpoint``, as the reference's two-level scan
+    does: carries are saved only at the S/chunk boundaries and a chunk
+    is recomputed in the backward pass. The values are the same either
+    way.
+    """
+    T = xs[0].shape[0]
+    if T % chunk or T <= chunk or not torch.is_grad_enabled():
+        return _scan(f, init, xs)
+    carry, ys = init, []
+    for c in range(T // chunk):
+        xc = tuple(x[c * chunk:(c + 1) * chunk] for x in xs)
+        carry, y = checkpoint(_scan, f, carry, xc, use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

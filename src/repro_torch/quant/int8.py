@@ -2,8 +2,8 @@
 (DESIGN.md SS.3). Used by the HH-PIM serving runtime and the pim_mac kernel.
 
 ``torch.round`` rounds half to even, as ``jnp.round`` does, so the int8
-values and fp32 scales equal the JAX package's bit for bit. The QAT
-helper ``fake_quant`` waits for the training slice.
+values and fp32 scales equal the JAX package's bit for bit, and
+the QAT helper ``fake_quant`` takes the same values.
 
 Every division has a tensor divisor: CUDA turns a division by a Python
 scalar into a multiply by its rounded reciprocal, which can differ in
@@ -43,3 +43,11 @@ def quantize_activations(x: torch.Tensor
     scale = amax.clamp_min(1e-8) / torch.full_like(amax, 127.0)
     q = torch.round(x / scale).clamp_(-127, 127)
     return q.to(torch.int8), scale[..., 0]
+
+
+def fake_quant(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Straight-through QAT helper: value of quant-dequant, gradient of
+    identity."""
+    q, s = quantize_per_channel(w.detach(), axis)
+    deq = dequantize(q, s, axis, w.dtype)
+    return w + (deq - w).detach()

@@ -411,3 +411,86 @@ def test_cuda_fleet_matches_cpu():
                 assert torch.equal(y[:, off:off + n], y_cpu[:, off:off + n])
             off += n
     assert pops.pim_matmul.launches > p0
+
+
+# -- training, CUDA against the CPU -------------------------------------------
+
+# fp32 smoke training (TF32 off): a loss is a mean of O(100)
+# log-probabilities, each a sum of a few hundred terms in another order
+TRAIN_LOSS_RTOL = 1e-5
+# a gradient leaf against its own largest entry; a leaf whose CPU
+# gradient is below GRAD_NOISE_SHARE of the tree's largest |g| is
+# cancellation noise and held to that level on the card too
+TRAIN_GRAD_RTOL = 1e-4
+GRAD_NOISE_SHARE = 1e-7
+# three Trainer steps: each AdamW update is about lr * sign(g), so an
+# entry whose gradient is rounding noise moves by up to 2 * lr on one
+# device against the other; the loss feels that far below 1e-4
+TRAINER_RTOL = 1e-4
+
+
+def _smoke_trainer(dev, params, steps, compression=False):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.optim.compression import init_error_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("internlm2_1_8b")
+    t = Trainer(cfg, OptimizerConfig(lr=3e-3, warmup_steps=2,
+                                     total_steps=steps),
+                DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                           global_batch=8),
+                TrainerConfig(steps=steps, grad_compression=compression),
+                device=dev)
+    # a copy: the optimizer writes the params in place
+    t.params = tree_map(lambda x: x.to(dev, copy=True), params)
+    t.opt_state = t.opt.init(t.params)
+    if compression:
+        t.error_state = init_error_state(t.params)
+    t.run()
+    return [m["loss"] for m in t.metrics_log]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compression", [False, True],
+                         ids=["plain", "compressed"])
+def test_cuda_training_matches_cpu(compression):
+    """The dense smoke model's loss gradients and three Trainer steps on
+    the card against the same params and batches on the CPU, in fp32
+    with TF32 off, launching none of the port's kernels."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train.step import make_loss_fn, value_and_grad
+    from repro_torch.tree import flatten_with_path
+    dev = _card()
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+        cfg.vocab_size, 32, 8)).batch(0).items()}
+    counts = (kops.dp_stages.launches, lops.minplus_combine.launches,
+              pops.pim_matmul.launches)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        (lc, _), gc = value_and_grad(make_loss_fn(cfg), _to(params, dev),
+                                     _to(batch, dev))
+        ours = _smoke_trainer(dev, params, 3, compression)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (lr, _), gr = value_and_grad(make_loss_fn(cfg), params, batch)
+    ref = _smoke_trainer(torch.device("cpu"), params, 3, compression)
+    assert abs(float(lc) - float(lr)) <= TRAIN_LOSS_RTOL * abs(float(lr))
+    top = max(float(g.abs().max()) for _, g in flatten_with_path(gr))
+    for (path, a), (_, b) in zip(flatten_with_path(gc),
+                                 flatten_with_path(gr)):
+        leaf = float(b.abs().max())
+        if leaf <= GRAD_NOISE_SHARE * top:
+            assert float(a.abs().max()) <= GRAD_NOISE_SHARE * top, path
+        else:
+            err = float((a.cpu() - b).abs().max())
+            assert err <= TRAIN_GRAD_RTOL * leaf, (path, err, leaf)
+    np.testing.assert_allclose(ours, ref, rtol=TRAINER_RTOL)
+    assert (kops.dp_stages.launches, lops.minplus_combine.launches,
+            pops.pim_matmul.launches) == counts

@@ -32,7 +32,12 @@ def test_every_port_module_imports_without_jax_or_repro():
               "repro_torch.serve.engine", "repro_torch.launch.serve",
               "repro_torch.fleet.router", "repro_torch.fleet.hierarchy",
               "repro_torch.fleet.dag", "repro_torch.launch.fleet",
-              "repro_torch.launch.obs"):
+              "repro_torch.launch.obs", "repro_torch.tree",
+              "repro_torch.data.synthetic", "repro_torch.optim",
+              "repro_torch.optim.adamw", "repro_torch.optim.compression",
+              "repro_torch.train", "repro_torch.train.step",
+              "repro_torch.train.trainer", "repro_torch.checkpoint.ckpt",
+              "repro_torch.launch.specs", "repro_torch.launch.train"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
