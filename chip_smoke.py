@@ -122,9 +122,29 @@ H100; the kernels are built for sm_90a). Phases:
      gradients on the card against the CPU; ``python -m
      repro_torch.launch.train --device cuda`` as a subprocess. Every
      launch count must still be 0 after (training reaches no kernel);
-  12. print each phase's seconds, the ``{"kernels": [...]}`` line (each
+  12. sharding (slice E) with every launch count set to 0 just before
+     it: a world of one on ``nccl`` and the (1, 1) test mesh; full-width
+     internlm2_1_8b (``scan_layers=False``) decodes 8 steps through
+     DTensor params and a DTensor decode state, held bitwise to the plain
+     ``decode_step`` (every placement replicates) and timed both ways by
+     CUDA events (the gap is DTensor's dispatch cost); one smoke train
+     step with 2 microbatches on the mesh: the loss equal to the plain
+     step's, each param leaf within 1e-6 of its largest entry.
+     Every launch count must still be 0 after. Then, each in a process
+     of its own and all started together: ``python -m
+     repro_torch.launch.dryrun --device cuda`` for internlm2_1_8b's
+     train_4k and decode_32k cells on the fake 256- and 512-rank meshes
+     (train cells cut to 2 of 24 blocks, decode cells whole), each
+     ``ok``, its per-device argument bytes equal to the sharding rules'
+     local shard shapes, printed with its trace time, temp bytes,
+     FLOPs, collective bytes by kind and its ``roofline.py`` row; and
+     ``examples/torch/*.py --device cuda``, each exiting 0, the host-side
+     ones (quickstart, placement_sweep, fleet_demo, serve_dynamic)
+     printing what their ``--device cpu`` runs print;
+  13. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
-     in total and per driven path, ``train`` among them; ``pim_mac``
+     in total and per driven path, ``train`` and ``sharded`` among them;
+     ``pim_mac``
      also its comparison with the library call at M=32 under
      ``at_library_shape`` and its recurrentgemma row under
      ``at_recurrentgemma_shape``) and, last,
@@ -145,6 +165,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2219,6 +2240,293 @@ def phase_training(card: str, out: dict) -> None:
             f"training launched a kernel: {out['train_launches']}")
 
 
+# -- phase 12: sharding, the dry run and the examples ---------------------
+
+DRYRUN_ARCH = "internlm2_1_8b"
+DRYRUN_CELLS = (("train_4k", "single"), ("train_4k", "multi"),
+                ("decode_32k", "single"), ("decode_32k", "multi"))
+# a train cell traces all 8 microbatches op by op through DTensor's
+# dispatch on the host, minutes at full depth: its depth is cut to 2
+# blocks here (decode cells run whole)
+DRYRUN_TRAIN_LAYERS = 2
+HOST_EXAMPLES = ("quickstart", "placement_sweep", "fleet_demo",
+                 "serve_dynamic")
+SHARDED_DECODE_B = 16
+SHARDED_DECODE_LEN = 256
+# the mesh step's embedding gradient is F.embedding's backward, the plain
+# step's index_put's accumulate: the same fp32 terms summed in another
+# order on the card, so each param leaf is held to its largest entry
+SHARDED_PARAM_RTOL = 1e-6
+
+
+def _subprocess(cmd) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="2")
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen, what: str, timeout: float) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    require(proc.returncode == 0,
+            f"{what}: exit {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def start_dryruns(out_dir: Path) -> dict:
+    """One ``launch.dryrun`` process per cell, all started together (each
+    starts its own fake world of 256 or 512 ranks)."""
+    procs = {}
+    for shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+               "cuda", "--arch", DRYRUN_ARCH, "--shape", shape, "--mesh",
+               mesh, "--out", str(out_dir), "--force"]
+        if shape.startswith("train"):
+            cmd += ["--layers", str(DRYRUN_TRAIN_LAYERS)]
+        procs[(shape, mesh)] = (_subprocess(cmd), time.perf_counter())
+    return procs
+
+
+def start_examples(ckpt_dir: Path) -> dict:
+    procs = {}
+    for name in HOST_EXAMPLES:
+        for dev in ("cuda", "cpu"):
+            procs[(name, dev)] = _subprocess(
+                [sys.executable, f"examples/torch/{name}.py", "--device",
+                 dev])
+    procs[("train_tiny", "cuda")] = _subprocess(
+        [sys.executable, "examples/torch/train_tiny.py", "--device", "cuda",
+         "--ckpt-dir", str(ckpt_dir)])
+    return procs
+
+
+def rules_argument_bytes(rec: dict) -> int:
+    """The per-device bytes of a dry-run cell's inputs as the sharding
+    rules lay them out: each leaf's local shard shape, summed."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs as sp
+    from repro_torch.optim.adamw import OptimizerConfig, make_optimizer
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import flatten_with_path
+
+    mesh = types.SimpleNamespace(shape=rec["mesh"])
+    cfg = dataclasses.replace(get_config(rec["arch"]),
+                              n_layers=rec["n_layers"])
+    cfg = sp.dryrun_config(cfg, mesh)
+    seq, batch, kind = sp.SHAPES[rec["shape"]]
+    with FakeTensorMode():
+        if kind == "train":
+            p = sp.abstract_params(cfg, torch.bfloat16 if rec["zero1"]
+                                   else None, device="cpu")
+            ps = sh.params_shardings(p, mesh, inference=rec["zero1"])
+            o = make_optimizer(OptimizerConfig(kind=rec["optimizer"])
+                               ).init(p)
+            b = sp.train_batch_specs(cfg, seq, batch, device="cpu")
+            trees = [(p, ps), (o, sh.params_shardings_like(o, p, ps, mesh)),
+                     (b, sh.batch_shardings(b, mesh))]
+        else:
+            p = sp.abstract_params(cfg, torch.bfloat16, device="cpu")
+            st = sp.abstract_decode_state(cfg, batch, seq, device="cpu")
+            tok, pos = sp.decode_token_specs(batch, device="cpu")
+            trees = [(p, sh.params_shardings(
+                         p, mesh, inference=rec["tp_only_params"])),
+                     (st, sh.decode_state_shardings(st, mesh)),
+                     ({"t": tok, "p": pos}, {"t": (None,), "p": ()})]
+    total = 0
+    for tree, specs in trees:
+        for path, leaf in flatten_with_path(tree):
+            spec = specs
+            for k in path:
+                spec = spec[k]
+            total += math.prod(sh.local_shape(tuple(leaf.shape), spec,
+                                              mesh)) * leaf.element_size()
+    return total
+
+
+def finish_dryruns(procs: dict, out_dir: Path, card: str, out: dict
+                   ) -> None:
+    from repro_torch.launch import roofline as rl
+    rows = {}
+    for (shape, mesh), (proc, t0) in procs.items():
+        out_file = out_dir / f"{DRYRUN_ARCH}__{shape}__{mesh}.json"
+        try:
+            _finish(proc, f"dry run {shape} {mesh}", 900)
+        except AssertionError:
+            if out_file.exists():     # the cell's own error and traceback
+                print(out_file.read_text()[-4000:], file=sys.stderr)
+            raise
+        wall = time.perf_counter() - t0
+        rec = json.loads(out_file.read_text())
+        require(rec["status"] == "ok", f"dry run {shape} {mesh}: {rec}")
+        mem = rec["memory"]
+        expect = rules_argument_bytes(rec)
+        row = rl.roofline_row(DRYRUN_ARCH, shape, mesh, out_dir)
+        cut = (f"{rec['n_layers']} of 24 blocks"
+               if rec["n_layers"] != 24 else "whole")
+        print(f"[sharded] dry run {DRYRUN_ARCH} {shape} {mesh} "
+              f"({rec['mesh']}, {cut}): trace {rec['trace_s']!r} s "
+              f"(process {wall:.1f} s); per device: argument "
+              f"{mem['argument_size_in_bytes']} B (rules' shards "
+              f"{expect} B), temp {mem['temp_size_in_bytes']} B, output "
+              f"{mem['output_size_in_bytes']} B; flops "
+              f"{rec['cost']['flops']!r} ({rec['cost']['flops_per_device']!r}"
+              f" per device); collectives {rec['collectives']}; "
+              f"microbatches {rec.get('microbatches')}; feasible LUT "
+              f"entries per substrate "
+              f"{[x.get('lut_feasible') for x in rec.get('substrates', [])]}"
+              f"; card {card}")
+        print(f"[sharded] roofline {shape} {mesh} (H100 constants; "
+              f"analytic cost of all 24 blocks, collectives of the traced "
+              f"ones): {row}")
+        require(mem["argument_size_in_bytes"] == expect,
+                f"dry run {shape} {mesh}: argument bytes "
+                f"{mem['argument_size_in_bytes']} != rules' {expect}")
+        rows[f"{shape} {mesh}"] = {"trace_s": rec["trace_s"],
+                                   "n_layers": rec["n_layers"]}
+    out["dryrun"] = rows
+
+
+def finish_examples(procs: dict) -> None:
+    outs = {key: _finish(proc, f"example {key[0]} --device {key[1]}", 600)
+            for key, proc in procs.items()}
+    for name in HOST_EXAMPLES:
+        same = outs[(name, "cuda")] == outs[(name, "cpu")]
+        print(f"[sharded] examples/torch/{name}.py --device cuda: exit 0, "
+              f"{len(outs[(name, 'cuda')].splitlines())} lines, stdout "
+              f"{'equal to' if same else 'DIFFERENT from'} --device cpu")
+        require(same, f"{name}: cuda and cpu stdout differ")
+    tail = outs[("train_tiny", "cuda")].strip().splitlines()[-1]
+    print(f"[sharded] examples/torch/train_tiny.py --device cuda: {tail}")
+
+
+def sharded_mesh(card: str, out: dict) -> None:
+    """A world of one on ``nccl``: full-width internlm2_1_8b decode
+    through DTensor params and a DTensor decode state on the (1, 1) test
+    mesh (every placement replicates) against the plain step, timed both
+    ways; then one smoke train step on the mesh against the plain step."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import OptimizerConfig, make_optimizer
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_map
+
+    store = ROOT / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(data=1, model=1, device="cuda")
+        cfg = serve_config()
+        params = lm.init_lm(torch.Generator("cuda").manual_seed(0), cfg)
+        dparams = sh.distribute(params, sh.params_shardings(
+            params, mesh, inference=True), mesh)
+        B, L = SHARDED_DECODE_B, SHARDED_DECODE_LEN
+        state = lm.init_decode_state(cfg, B, L, device="cuda")
+        st0 = lm.init_decode_state(cfg, B, L, device="cuda")
+        dstate = sh.distribute(st0, sh.decode_state_shardings(st0, mesh),
+                               mesh)
+        toks = torch.randint(0, cfg.vocab_size, (8, B), device="cuda",
+                             generator=torch.Generator("cuda").manual_seed(1))
+        err = 0.0
+        with torch.no_grad():
+            for pos in range(8):
+                ref, state = lm.decode_step(params, cfg, state, toks[pos],
+                                            pos)
+                with sh.on_mesh():
+                    got, dstate = lm.decode_step(dparams, cfg, dstate,
+                                                 toks[pos], pos)
+                err = max(err, max_abs_err(got.to_local(), ref))
+            plain_ms = cuda_ms(lambda: lm.decode_step(
+                params, cfg, state, toks[0], 8), reps=10)
+
+            def mesh_step():
+                with sh.on_mesh():
+                    lm.decode_step(dparams, cfg, dstate, toks[0], 8)
+            mesh_ms = cuda_ms(mesh_step, reps=10)
+        print(f"[sharded] full-width internlm2_1_8b decode_step (B={B}, "
+              f"max_len={L}, 8 steps) on the (1, 1) nccl mesh against the "
+              f"plain step: max |diff| {err!r}; CUDA events: plain "
+              f"{plain_ms!r} ms, DTensor {mesh_ms!r} ms (dispatch cost "
+              f"{mesh_ms - plain_ms!r} ms a step); card {card}")
+        require(err == 0.0, f"sharded decode differs from the plain step "
+                            f"by {err}")
+        out["sharded_decode"] = {"plain_ms": plain_ms, "mesh_ms": mesh_ms}
+        del params, dparams, state, dstate, st0
+        torch.cuda.empty_cache()
+
+        scfg = get_smoke_config("internlm2_1_8b")
+        p0 = lm.init_lm(torch.Generator("cuda").manual_seed(2), scfg)
+        batch = {k: v.cuda() for k, v in train_batch(
+            scfg, 8, 32, torch.Generator().manual_seed(3)).items()}
+        opt = make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=1))
+        step = make_train_step(scfg, opt, num_microbatches=2)
+        ref_p = tree_map(lambda x: x.clone(), p0)
+        ref_p, _, ref_m = step(ref_p, opt.init(ref_p), batch)
+        ps = sh.params_shardings(p0, mesh)
+        s0 = opt.init(p0)
+        dp, _, m = step(sh.distribute(p0, ps, mesh),
+                        sh.distribute(s0, sh.params_shardings_like(
+                            s0, p0, ps, mesh), mesh),
+                        sh.distribute(batch, sh.batch_shardings(batch, mesh),
+                                      mesh))
+        perr = max(max_abs_err(a.to_local(), b) / float(b.abs().max())
+                   for a, b in zip(_leaves(dp), _leaves(ref_p)))
+        lerr = abs(float(m["loss"]) - float(ref_m["loss"]))
+        print(f"[sharded] smoke internlm2 train step (2 microbatches, "
+              f"AdamW) on the mesh against the plain step: |loss diff| "
+              f"{lerr!r}, params max |diff| / leaf max {perr!r} (rtol "
+              f"{SHARDED_PARAM_RTOL})")
+        require(lerr == 0.0 and perr <= SHARDED_PARAM_RTOL,
+                f"sharded train step differs: loss {lerr}, params {perr}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(card: str, out: dict) -> None:
+    """Sharding (slice E): the sharded path on the card with every kernel's
+    launch count set to 0 (none is reached: decode runs the untiered
+    params, note (b)); then the dry run's cells and the examples, each a
+    process of its own, all started together."""
+    zero_kernel_counts()
+    timed("sharded/mesh", sharded_mesh, card, out)
+    out["sharded_launches"] = kernel_counts()
+    print(f"[sharded] kernel launches over the sharded path: "
+          f"{out['sharded_launches']}")
+    require(not any(out["sharded_launches"].values()),
+            f"the sharded path launched a kernel: {out['sharded_launches']}")
+    work = ROOT / "build" / "chip_smoke_sharded"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    dry = start_dryruns(work / "dryrun")
+    ex = start_examples(work / "train_tiny_ckpt")
+    try:
+        timed("sharded/examples", finish_examples, ex)
+        timed("sharded/dry run", finish_dryruns, dry, work / "dryrun", card,
+              out)
+    finally:
+        for proc in list(ex.values()) + [p for p, _ in dry.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    print(f"[sharded] dry run and examples: {time.perf_counter() - t0:.1f} "
+          f"s wall")
+
+
 def timed(label: str, fn, *args) -> None:
     t0 = time.perf_counter()
     fn(*args)
@@ -2277,6 +2585,7 @@ def main() -> int:
         timed("families full width", phase_families_full, out)
         timed("fleet", phase_fleet, scfg, card, out)
         timed("training", phase_training, card, out)
+        timed("sharded", phase_sharded, card, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2296,6 +2605,7 @@ def main() -> int:
         "fleet (internlm2_1_8b, decode)": out["fleet"]["launches"]["pim_mac"]}
     for k in by_path:
         by_path[k]["train"] = out["train_launches"][k]
+        by_path[k]["sharded"] = out["sharded_launches"][k]
     kernels = [
         dict(name="dp_stages", route="cuda",
              source="src/repro_torch/csrc/dp_stages.cu",

@@ -11,6 +11,10 @@
                ``meta.json``. A checkpoint of either package restores in
                the other; bf16 leaves are written as float32 (exact;
                numpy has no bf16) and cast back to the template's dtype.
+  * elastic  - a DTensor leaf is gathered whole (every rank takes part,
+               global rank 0 writes), and ``restore(..., shardings=)``
+               lays each leaf out anew on any mesh, so a job can restart
+               on another topology.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
-from repro_torch.tree import flatten_with_path, structure, tree_map
+from repro_torch.tree import flatten_with_path, leaves, structure, tree_map
 
 PyTree = Any
 
@@ -42,6 +48,8 @@ def _host(leaf) -> np.ndarray:
     be written."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()         # a collective: every rank calls
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.to("cpu", copy=True).numpy()
@@ -54,23 +62,33 @@ def _flatten(tree: PyTree) -> Dict[str, np.ndarray]:
             for path, leaf in flatten_with_path(tree)}
 
 
+def _writer() -> bool:
+    """Global rank 0 writes; a process outside any group is rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(tree: PyTree, directory: str | os.PathLike, step: int) -> Path:
-    """Synchronous atomic save. Returns the final checkpoint path."""
+    """Synchronous atomic save. Returns the final checkpoint path. With
+    DTensor leaves every rank of their mesh calls it; the file is
+    complete on every rank's return."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
-    tmp = directory / f"step_{step:08d}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
     flat = _flatten(tree)
-    np.savez(tmp / "arrays.npz", **flat)
-    (tmp / "meta.json").write_text(json.dumps({
-        "step": step, "treedef": f"PyTreeDef({structure(tree)})",
-        "keys": sorted(flat.keys())}))
-    if final.exists():
-        shutil.rmtree(final)
-    tmp.rename(final)                      # atomic on POSIX
+    if _writer():
+        directory.mkdir(parents=True, exist_ok=True)
+        tmp = directory / f"step_{step:08d}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+        np.savez(tmp / "arrays.npz", **flat)
+        (tmp / "meta.json").write_text(json.dumps({
+            "step": step, "treedef": f"PyTreeDef({structure(tree)})",
+            "keys": sorted(flat.keys())}))
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)                      # atomic on POSIX
+    if any(isinstance(x, DTensor) for x in leaves(tree)):
+        dist.barrier()
     return final
 
 
@@ -83,19 +101,33 @@ def latest_step(directory: str | os.PathLike) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _restore_leaf(arr: np.ndarray, leaf):
+def _at(tree: PyTree, path) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _restore_leaf(arr: np.ndarray, leaf, shard):
     if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        t = torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+        if shard is not None:
+            return distribute_tensor(t, shard.mesh, shard.placements)
+        return t
     if hasattr(leaf, "dtype"):
         return np.asarray(arr.astype(leaf.dtype))
     return arr
 
 
 def restore(template: PyTree, directory: str | os.PathLike,
-            step: Optional[int] = None) -> PyTree:
+            step: Optional[int] = None,
+            shardings: Optional[PyTree] = None) -> PyTree:
     """Restore into the structure of ``template``: each tensor leaf comes
     back with its template leaf's dtype and device, each numpy leaf as a
-    numpy array of its template's dtype."""
+    numpy array of its template's dtype. ``shardings`` (a tree like
+    ``template`` of :class:`~repro_torch.parallel.sharding.NamedSharding`,
+    e.g. ``sharding.named(specs, template, mesh)``) lays each tensor leaf
+    out as a DTensor on its mesh instead (elastic re-shard on a new
+    mesh); every rank of that mesh calls it."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -104,7 +136,9 @@ def restore(template: PyTree, directory: str | os.PathLike,
     path = directory / f"step_{step:08d}"
     with np.load(path / "arrays.npz") as data:
         arrays = {k: data[k] for k in data.files}
-    it = iter([_restore_leaf(arrays[_key(p)], leaf)
+    it = iter([_restore_leaf(arrays[_key(p)], leaf,
+                             None if shardings is None
+                             else _at(shardings, p))
                for p, leaf in flatten_with_path(template)])
     return tree_map(lambda _: next(it), template)
 

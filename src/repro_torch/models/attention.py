@@ -14,8 +14,10 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import ModelConfig, apply_rope, dense_init
+from repro_torch.models.common import (ModelConfig, apply_rope,
+                                      batch_only, dense_init)
 
 KVCache = Dict[str, torch.Tensor]   # {"k": (B,S,KV,hd), "v": ...}
 
@@ -40,11 +42,16 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig
 
 
 def _project_qkv(p, x, cfg: ModelConfig, positions):
+    """q, k, v in the (B, S, heads, hd) layout. On a mesh they are
+    sharded by batch only (``batch_only``): the attention products fold
+    batch and heads into one matmul batch dim, which DTensor cannot
+    flatten while the head dim is sharded as well (a KV cache keeps its
+    own sequence sharding)."""
     B, S, _ = x.shape
     hd = cfg.hd
-    q = x @ p["wq"].to(x.dtype)
-    k = x @ p["wk"].to(x.dtype)
-    v = x @ p["wv"].to(x.dtype)
+    q = batch_only(x @ p["wq"].to(x.dtype))
+    k = batch_only(x @ p["wk"].to(x.dtype))
+    v = batch_only(x @ p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -229,9 +236,11 @@ def cross_attention(p, x, enc_out, cfg: ModelConfig) -> torch.Tensor:
     B, Sq, _ = x.shape
     Sk = enc_out.shape[1]
     hd = cfg.hd
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, Sq, cfg.n_heads, hd)
-    k = (enc_out @ p["wk"].to(x.dtype)).reshape(B, Sk, cfg.n_kv_heads, hd)
-    v = (enc_out @ p["wv"].to(x.dtype)).reshape(B, Sk, cfg.n_kv_heads, hd)
+    q = batch_only(x @ p["wq"].to(x.dtype)).reshape(B, Sq, cfg.n_heads, hd)
+    k = batch_only(enc_out @ p["wk"].to(x.dtype)).reshape(
+        B, Sk, cfg.n_kv_heads, hd)
+    v = batch_only(enc_out @ p["wv"].to(x.dtype)).reshape(
+        B, Sk, cfg.n_kv_heads, hd)
     return _unmasked_sdpa(q, k, v, cfg) @ p["wo"].to(x.dtype)
 
 
@@ -257,9 +266,10 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
 
     Local attention uses a ring buffer of size ``local_window``; full
     attention appends at ``pos``. Both write slot ``pos % C``. The cache
-    is written IN PLACE (``index_copy_`` / ``index_put_``) where the JAX
-    package selects a new cache with ``where``: the values are the same,
-    and the returned cache holds the same tensors as ``cache``.
+    is written IN PLACE (``index_copy_`` / ``index_put_``; a DTensor
+    cache by a ``where`` select copied over it) where the JAX package
+    selects a new cache with ``where``: the values are the same, and the
+    returned cache holds the same tensors as ``cache``.
     """
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long()
@@ -268,7 +278,17 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
     q, k, v = _project_qkv(p, x, cfg, positions)
     C = cache["k"].shape[1]
     slot = pos % C
-    if per_row:
+    idx = torch.arange(C, device=x.device)
+    if isinstance(cache["k"], DTensor):
+        # a sharded cache: no sharding rule writes a slot of a sharded
+        # dim in place, so select the new cache (as the JAX package does)
+        # and copy it over the old one, shard by shard
+        hit = (idx[None, :] == slot[:, None] if per_row
+               else (idx == slot)[None, :])[:, :, None, None]
+        for name, new in (("k", k), ("v", v)):
+            cache[name].copy_(torch.where(
+                hit, new.to(cache[name].dtype), cache[name]))
+    elif per_row:
         rows = torch.arange(B, device=x.device)
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
@@ -277,7 +297,6 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
         cache["v"].index_copy_(1, slot.view(1), v.to(cache["v"].dtype))
     # valid = entries written so far and (for local) within the window;
     # a full ring buffer is all valid
-    idx = torch.arange(C, device=x.device)
     if cfg.attn_kind == "local":
         if per_row:
             valid = (idx[None, :] <= slot[:, None]) | (pos[:, None] >= C)

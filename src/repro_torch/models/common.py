@@ -1,9 +1,9 @@
 """Model configuration and shared building blocks for the architecture zoo.
 
 The numerics helpers (``rms_norm``, RoPE, ``dense_init``) serve every
-family of :mod:`repro_torch.models.lm`. The JAX package's sharding hints
-(``replicate_for_gather``, ``shard_activations``) are no-ops on one card
-and wait for the parallel slice.
+family of :mod:`repro_torch.models.lm`. The sharding hints
+(``replicate_for_gather``, ``shard_activations``, ``batch_only``) act on
+DTensors only: on plain tensors, as on one card, they return their input.
 """
 from __future__ import annotations
 
@@ -12,6 +12,9 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from repro_torch.parallel.sharding import to_placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,3 +162,46 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0
     fan_in = shape[in_axis]
     return (torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                         device=gen.device) / math.sqrt(fan_in))
+
+
+# ---------------------------------------------------------------------------
+# sharding hints (DTensors on a mesh; plain tensors pass through)
+# ---------------------------------------------------------------------------
+
+
+def replicate_for_gather(table: torch.Tensor, cfg: "ModelConfig"
+                         ) -> torch.Tensor:
+    """Explicitly all-gather a (sharded) lookup table before a token
+    gather: one clean all-gather of the parameter instead of a gather
+    from a d_model-sharded table and a reshard of its result."""
+    if cfg.act_dp_axes is None or not isinstance(table, DTensor):
+        return table
+    return table.redistribute(table.device_mesh,
+                              [Replicate()] * table.device_mesh.ndim)
+
+
+def shard_activations(x: torch.Tensor, cfg: "ModelConfig",
+                      *trailing) -> torch.Tensor:
+    """Lay an activation's batch dim over the DP axes, every other dim
+    whole (``trailing`` names the next dims' axes), as the JAX package's
+    ``with_sharding_constraint``; a no-op on a plain tensor or when the
+    launcher did not set ``act_dp_axes``."""
+    if cfg.act_dp_axes is None or not isinstance(x, DTensor):
+        return x
+    spec = (cfg.act_dp_axes,) + tuple(trailing) + \
+        (None,) * (x.ndim - 1 - len(trailing))
+    return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
+
+
+def batch_only(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor laid out with dim 0 as it is sharded now and every other
+    dim whole; anything else as is. For work that is independent per row
+    and folds other dims into one (attention folds batch and heads into
+    one matmul batch dim, which DTensor cannot flatten while an inner dim
+    of the fold is sharded)."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [p if p == Shard(0) else Replicate() for p in x.placements]
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DEFAULT_DEVICE
@@ -40,7 +41,9 @@ from repro_torch.device import resolve as resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
-from repro_torch.models.common import ModelConfig, dense_init, rms_norm
+from repro_torch.models.common import (ModelConfig, batch_only,
+                                      dense_init, replicate_for_gather,
+                                      rms_norm, shard_activations)
 from repro_torch.models.mlp import init_mlp_cfg, mlp_cfg
 
 PyTree = Any
@@ -102,10 +105,14 @@ def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
              else attn_lib.encoder_attention(p["mix"], h, cfg, positions))
     else:
         h = _APPLY_MIX[kind](p["mix"], h, cfg)
-    x = x + h
+    # on a mesh, reduce the mixer's partial sums here: DTensor would carry
+    # them unreduced into the next norm and reshard on its own (JAX's
+    # partitioner reduces at the residual add)
+    x = shard_activations(x + h, cfg)
     if "cross" in p:
         h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-        x = x + attn_lib.cross_attention(p["cross"], h, enc_out, cfg)
+        x = shard_activations(
+            x + attn_lib.cross_attention(p["cross"], h, enc_out, cfg), cfg)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         if _is_moe(cfg, kind):
@@ -121,22 +128,26 @@ def apply_block_decode(p: PyTree, x: torch.Tensor, cfg: ModelConfig,
                        kind: str, state: PyTree, *, pos, enc_out=None
                        ) -> Tuple[torch.Tensor, PyTree]:
     """One-token block application with recurrent/KV state (a KV cache is
-    written in place, a recurrent state returned anew)."""
+    written in place, a recurrent state returned anew). On a mesh the
+    residual stream is sharded by batch only (``batch_only``), its
+    partial sums reduced at each add."""
+    x = batch_only(x)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         h, new_state = attn_lib.attention_decode(p["mix"], h, cfg, state,
                                                  pos)
     else:
         h, new_state = _DECODE_MIX[kind](p["mix"], h, cfg, state)
-    x = x + h
+    x = batch_only(x + h)
     if "cross" in p:
         h = rms_norm(x, p["ln_cross"], cfg.norm_eps)
-        x = x + attn_lib.cross_attention_decode(p["cross"], h, enc_out, cfg)
+        x = batch_only(
+            x + attn_lib.cross_attention_decode(p["cross"], h, enc_out, cfg))
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         h = (moe_lib.moe(p["ffn"], h, cfg) if _is_moe(cfg, kind)
              else mlp_cfg(p["ffn"], h, cfg))
-        x = x + h
+        x = batch_only(x + h)
     return x, new_state
 
 
@@ -232,6 +243,7 @@ def _apply_stack(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
     blocks += [(params[f"tail_{i}"], kind) for i, kind in enumerate(tail)]
     remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = shard_activations(x, cfg)
     for blk, kind in blocks:
         kw = dict(cfg=cfg, kind=kind, positions=positions, enc_out=enc_out,
                   causal=causal)
@@ -239,6 +251,8 @@ def _apply_stack(params: PyTree, x: torch.Tensor, cfg: ModelConfig, *,
             x, a = checkpoint(apply_block, blk, x, use_reentrant=False, **kw)
         else:
             x, a = apply_block(blk, x, **kw)
+        # constrain outside the checkpoint boundary, as the reference
+        x = shard_activations(x, cfg)
         aux_total = aux_total + a
     return x, aux_total
 
@@ -327,9 +341,19 @@ def params_from_numpy(tree: PyTree, device=DEFAULT_DEVICE) -> PyTree:
 
 def _embed_inputs(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Token embedding (+ optional prepended modality embeddings); the
-    positions count the prefix."""
-    # gather, then cast: the same values as casting the whole table first
-    x = params["embed"][tokens].to(cfg.dtype)
+    positions count the prefix.
+
+    On a mesh, a large token count gathers from a replicated table, cast
+    to the compute dtype first (halving the all-gather's bytes); small
+    token counts gather straight from the sharded table."""
+    table = params["embed"]
+    if tokens.numel() > 4096 and cfg.act_dp_axes is not None:
+        table = replicate_for_gather(table.to(cfg.dtype), cfg)
+    # gather, then cast: the same values as casting the whole table first;
+    # a DTensor table through F.embedding, whose sharding rules cover its
+    # backward (DTensor's index_put rule fails in torch 2.11)
+    x = (F.embedding(tokens, table) if isinstance(table, DTensor)
+         else table[tokens]).to(cfg.dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.dtype), x], dim=1)
     B, S, _ = x.shape

@@ -8,8 +8,11 @@ over-capacity tokens are dropped (GShard-style) with the residual stream
 keeping them alive. The grouped expert products are plain batched
 matmuls (E x C x d x f), as the JAX package leaves them to XLA.
 
-The JAX package's sharding hints (``_wsc``) have no counterpart on one
-card.
+On a mesh (DTensor activations) the dispatch and the gather back run
+on each rank's own blocks (``_blockwise``), and with
+moe_dispatch_blocks > 1 the slot buffers are laid out block dim over
+"data" and expert dim over "model" (expert parallelism) around the
+expert products, by ``_wsc``.
 """
 from __future__ import annotations
 
@@ -18,9 +21,37 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, batch_only, dense_init
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.parallel.sharding import to_placements
+
+
+def _wsc(x: torch.Tensor, *spec) -> torch.Tensor:
+    """Sharding hint: a DTensor moved to ``spec``'s layout; a plain
+    tensor (one card) is returned as is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
+
+
+def _blockwise(fn, *xs):
+    """``fn`` over tensors whose dim 0 is the dispatch block: the JAX
+    package's ``vmap`` over blocks. On DTensors (no sharding rule covers
+    the scatter, sort and index ops of the dispatch) every input is laid
+    out with the block dim as the first input shards it and all else
+    whole, and ``fn`` runs on each rank's own blocks."""
+    if not isinstance(xs[0], DTensor):
+        return fn(*xs)
+    mesh = xs[0].device_mesh
+    pl = batch_only(xs[0]).placements
+    local = [x.redistribute(mesh, pl).to_local() for x in xs]
+    out = fn(*local)
+
+    def wrap(t):
+        return DTensor.from_local(t, mesh, pl, run_check=False)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig
@@ -78,27 +109,40 @@ def moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     weights = torch.softmax(weights, dim=-1)
 
     flat_e = experts.reshape(nb, tb * k)
-    pos = _slot_positions(flat_e, E)
-    keep = pos < C
-    safe_e = torch.where(keep, flat_e, 0)
-    safe_p = torch.where(keep, pos, C - 1)
 
-    src = (torch.repeat_interleave(xb, k, dim=1)
-           * keep[..., None].to(dt))
-    # scatter into (nb, E, C, d) slots; dropped entries add a zero update
-    # at slot C-1 of expert 0, as in the reference
-    blk = torch.arange(nb, device=dev)[:, None].expand(nb, tb * k)
-    slots = torch.zeros((nb, E, C, d), dtype=dt, device=dev)
-    slots.index_put_((blk, safe_e, safe_p), src, accumulate=True)
+    def dispatch(xb, flat_e):
+        n = xb.shape[0]
+        pos = _slot_positions(flat_e, E)
+        keep = pos < C
+        safe_e = torch.where(keep, flat_e, 0)
+        safe_p = torch.where(keep, pos, C - 1)
+        src = (torch.repeat_interleave(xb, k, dim=1)
+               * keep[..., None].to(dt))
+        # scatter into (nb, E, C, d) slots; dropped entries add a zero
+        # update at slot C-1 of expert 0, as in the reference
+        blk = torch.arange(n, device=dev)[:, None].expand(n, tb * k)
+        slots = torch.zeros((n, E, C, d), dtype=dt, device=dev)
+        slots.index_put_((blk, safe_e, safe_p), src, accumulate=True)
+        return keep, safe_e, safe_p, slots
 
-    # grouped expert GEMMs (the real FLOPs)
+    keep, safe_e, safe_p, slots = _blockwise(dispatch, xb, flat_e)
+
+    # grouped expert GEMMs (the real FLOPs); expert dim -> "model" axis
+    if nb > 1:
+        slots = _wsc(slots, "data", "model", None, None)
     g = torch.einsum("becd,edf->becf", slots, p["w_gate"].to(dt))
     u = torch.einsum("becd,edf->becf", slots, p["w_up"].to(dt))
     h = F.silu(g) * u
     out_slots = torch.einsum("becf,efd->becd", h, p["w_down"].to(dt))
+    if nb > 1:
+        out_slots = _wsc(out_slots, "data", "model", None, None)
 
     # gather back + router-weighted combine
-    gathered = out_slots[blk, safe_e, safe_p]                # (nb,tbk,d)
+    def gather(o, e, pos):
+        blk = torch.arange(o.shape[0], device=dev)[:, None].expand(e.shape)
+        return o[blk, e, pos]
+
+    gathered = _blockwise(gather, out_slots, safe_e, safe_p)  # (nb,tbk,d)
     gathered = gathered * keep[..., None].to(dt)
     gathered = gathered * weights.reshape(nb, tb * k)[..., None].to(dt)
     y = gathered.reshape(nb, tb, k, d).sum(dim=2)

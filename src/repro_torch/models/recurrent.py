@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.models.common import ModelConfig, batch_only, dense_init
 from repro_torch.models.mlp import _gelu
 
 
@@ -189,9 +189,11 @@ def _mlstm_qkv(p, x, cfg):
     # sqrt(hd) in fp32, then cast to the compute dtype, as the reference
     root = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
                                    device=x.device)).to(dt)
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, H, hd) / root
-    v = (x @ p["wv"].to(dt)).reshape(B, S, H, hd)
+    # on a mesh, batch-only layouts (as attention's q, k, v): the heads
+    # split out of a sharded feature dim only where the mesh divides them
+    q = batch_only(x @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    k = batch_only(x @ p["wk"].to(dt)).reshape(B, S, H, hd) / root
+    v = batch_only(x @ p["wv"].to(dt)).reshape(B, S, H, hd)
     i_gate = (x @ p["wi"].to(dt)).float() + p["bi"]
     f_gate = (x @ p["wf"].to(dt)).float() + p["bf"]
     o_gate = torch.sigmoid(x @ p["wo_gate"].to(dt))

@@ -4,16 +4,26 @@ The reference's ``lax.scan`` over microbatches is a Python loop over the
 same ``reshape`` split here, and ``jax.value_and_grad`` is
 :func:`value_and_grad`: ``torch.autograd.grad`` over every param leaf,
 with zeros for a leaf the loss does not reach, as JAX gives.
+
+On a mesh (params, optimizer state and batch as DTensors, laid out by
+:mod:`repro_torch.parallel.sharding`) the same step runs under
+``sharding.on_mesh``; each microbatch is a slice of every
+rank's local rows, gradients are accumulated in their parameters'
+layouts (a partial sum is reduce-scattered onto its shards as it is
+added) and moved onto those layouts before the optimizer updates in
+place. The single-device path is unchanged.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import Optimizer
+from repro_torch.parallel import sharding
 from repro_torch.tree import leaves, tree_map
 
 PyTree = Any
@@ -61,31 +71,46 @@ def value_and_grad(loss_fn: Callable, params: PyTree, batch: PyTree
     return (loss.detach(), metrics), tree_map(lambda _: next(it), params)
 
 
+def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of one batch leaf.
+
+    One device: rows ``[i*B/n, (i+1)*B/n)``, the reference's ``reshape``
+    split. A DTensor: the same slice of each rank's local rows, so no
+    microbatch moves data between ranks. With the batch sharded over the
+    data axes, microbatch ``i`` then holds different global rows than on
+    one device (rank r's slice ``i``, for every r); the step's sum over
+    microbatches is the same. Reshaping the global batch instead would
+    move the sharded batch dim onto the microbatch index, the layout the
+    JAX package's multi-device step trips on (ROADMAP note (a))."""
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        return DTensor.from_local(
+            local.reshape((n, local.shape[0] // n) + local.shape[1:])[i],
+            x.device_mesh, x.placements, run_check=False)
+    return x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+
+
 def make_train_step(cfg: ModelConfig, opt: Optimizer,
                     num_microbatches: int = 1,
                     accum_dtype=torch.float32) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``. The optimizer updates ``params`` and ``opt_state`` in
-    place (:mod:`repro_torch.optim.adamw`)."""
+    place (:mod:`repro_torch.optim.adamw`). With DTensor params the step
+    runs on their mesh and returns the loss as a plain tensor."""
     loss_fn = make_loss_fn(cfg)
 
-    def train_step(params: PyTree, opt_state: PyTree, batch: PyTree
-                   ) -> Tuple[PyTree, PyTree, Dict[str, torch.Tensor]]:
+    def step(params: PyTree, opt_state: PyTree, batch: PyTree, mesh: bool
+             ) -> Tuple[PyTree, PyTree, Dict[str, torch.Tensor]]:
         if num_microbatches == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
             n = num_microbatches
-
-            def split(x):
-                return x.reshape((n, x.shape[0] // n) + x.shape[1:])
-
-            micro = tree_map(split, batch)
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=accum_dtype, device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=accum_dtype), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
             for i in range(n):
-                mb = tree_map(lambda x: x[i], micro)
+                mb = tree_map(lambda x: _microbatch(x, n, i), batch)
                 (loss_mb, _m), g = value_and_grad(loss_fn, params, mb)
                 # in place: the same rounding as ``a + b.astype(a.dtype)``
                 for a, b in zip(leaves(gsum), leaves(g)):
@@ -99,11 +124,22 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer,
             del gsum
             loss = lsum / nt
             metrics = {}
+        if mesh:
+            grads = sharding.redistribute_like(grads, params)
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
 
         new_params, new_opt_state = opt.update(grads, opt_state, params)
         out_metrics = {"loss": loss}
         out_metrics.update({k: v for k, v in metrics.items()
                             if k in ("aux",)})
         return new_params, new_opt_state, out_metrics
+
+    def train_step(params: PyTree, opt_state: PyTree, batch: PyTree
+                   ) -> Tuple[PyTree, PyTree, Dict[str, torch.Tensor]]:
+        if not sharding.is_distributed(params):
+            return step(params, opt_state, batch, mesh=False)
+        with sharding.on_mesh():
+            return step(params, opt_state, batch, mesh=True)
 
     return train_step
