@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card (an
 H100; the kernels are built for sm_90a). Phases:
 
-  1. print the card's name and power limit; build the three CUDA kernels
+  1. print the card's name and power limit; build the six CUDA sources
      from ``src/repro_torch/csrc`` (nvcc, one process per source, in
      parallel), printing ``-Xptxas -v`` and the build times;
   2. hold the placement kernels bitwise (``torch.equal``) against their
@@ -120,8 +120,11 @@ H100; the kernels are built for sm_90a). Phases:
      step with 8 microbatches on the same params and batch within 2e-2 of
      the first loss; a 2-layer fp32 model at full width, loss and
      gradients on the card against the CPU; ``python -m
-     repro_torch.launch.train --device cuda`` as a subprocess. Every
-     launch count must still be 0 after (training reaches no kernel);
+     repro_torch.launch.train --device cuda`` as a subprocess. Of the
+     kernels training reaches only the RG-LRU's two, in the
+     recurrentgemma smoke gradient: ``rglru_scan`` and ``rglru_scan_bwd``
+     launch once per RG-LRU block, every other count stays 0 (xlstm
+     trains through ``chunked_scan``);
   12. sharding (slice E) with every launch count set to 0 just before
      it: a world of one on ``nccl`` and the (1, 1) test mesh; full-width
      internlm2_1_8b (``scan_layers=False``) decodes 8 steps through
@@ -130,7 +133,8 @@ H100; the kernels are built for sm_90a). Phases:
      CUDA events (the gap is DTensor's dispatch cost); one smoke train
      step with 2 microbatches on the mesh: the loss equal to the plain
      step's, each param leaf within 1e-6 of its largest entry.
-     Every launch count must still be 0 after. Then, each in a process
+     Every launch count must still be 0 after (the sharded path runs
+     no recurrent model). Then, each in a process
      of its own and all started together: ``python -m
      repro_torch.launch.dryrun --device cuda`` for internlm2_1_8b's
      train_4k and decode_32k cells on the fake 256- and 512-rank meshes
@@ -141,10 +145,33 @@ H100; the kernels are built for sm_90a). Phases:
      ``examples/torch/*.py --device cuda``, each exiting 0, the host-side
      ones (quickstart, placement_sweep, fleet_demo, serve_dynamic)
      printing what their ``--device cpu`` runs print;
-  13. print each phase's seconds, the ``{"kernels": [...]}`` line (each
+  13. the recurrent scans (slice F): ``rglru_scan`` and ``rglru_scan_bwd``
+     bitwise, ``mlstm_scan`` and ``slstm_scan`` within 4e-6 of the
+     largest |h|, against their plain versions on the card at the smoke
+     and full widths (d 2560, d 2048, 4 heads of 512) at S = 1, 200 and
+     4096; each timed at B=2, S=4096 by CUDA events and torch.profiler
+     beside its bound and its plain version. Each path with every launch
+     count set to 0 just before and read just after:
+     recurrentgemma_2b at full width (26 layers, bf16, unscanned),
+     ``lm.forward`` at B=2, S=4096 without autograd, one ``rglru_scan``
+     per RG-LRU block, bitwise to the same forward through the plain
+     loops; 2 Trainer steps of it at full depth (``dryrun_config``,
+     AdamW) at B=2, S=4096 in a child process (``--recurrent-train``;
+     the step peaks near the card's 80 GB), each step launching the
+     forward scan twice per block (remat) and the backward once; a
+     2-layer fp32 full-width loss and gradient against the CPU;
+     xlstm_1_3b at full width (48 layers, bf16) ``lm.forward`` at B=2,
+     S=4096 without autograd, one ``mlstm_scan`` or ``slstm_scan`` per
+     block, and its whole stack in fp32 at S=512 against the plain loops
+     within 1e-3 of the largest logit. Then ``python -m
+     repro_torch.launch.dryrun --device cuda`` for recurrentgemma_2b's
+     train_4k (cut to 2 of 26 blocks) and prefill_32k and xlstm_1_3b's
+     prefill_32k (whole) on both fake meshes, each ``ok`` with its
+     argument bytes equal to the rules' local shards;
+  14. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
-     in total and per driven path, ``train`` and ``sharded`` among them;
-     ``pim_mac``
+     in total and per driven path, ``train``, ``sharded`` and slice F's
+     among them; ``pim_mac``
      also its comparison with the library call at M=32 under
      ``at_library_shape`` and its recurrentgemma row under
      ``at_recurrentgemma_shape``) and, last,
@@ -156,6 +183,7 @@ The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1559,21 +1587,27 @@ def same_stats(a: dict, b: dict, dev_a: str, dev_b: str) -> bool:
             and by_b == {dev_b: b["builds"]})
 
 
-def kernel_counts() -> dict:
+def _wrappers() -> dict:
+    """Every kernel's wrapper, which keeps its launch count."""
     from repro_torch.kernels.knapsack_dp.ops import dp_stages
     from repro_torch.kernels.lut_pipeline.ops import minplus_combine
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
     from repro_torch.kernels.pim_mac.ops import pim_matmul
-    return {"dp_stages": dp_stages.launches,
-            "minplus_combine": minplus_combine.launches,
-            "pim_mac": pim_matmul.launches}
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    return {"dp_stages": dp_stages, "minplus_combine": minplus_combine,
+            "pim_mac": pim_matmul, "rglru_scan": rglru_scan,
+            "rglru_scan_bwd": rglru_scan_bwd, "mlstm_scan": mlstm_scan,
+            "slstm_scan": slstm_scan}
+
+
+def kernel_counts() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def zero_kernel_counts() -> None:
-    from repro_torch.kernels.knapsack_dp.ops import dp_stages
-    from repro_torch.kernels.lut_pipeline.ops import minplus_combine
-    from repro_torch.kernels.pim_mac.ops import pim_matmul
-    dp_stages.launches = minplus_combine.launches = 0
-    pim_matmul.launches = 0
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def nearest_rank(xs, q: float) -> float:
@@ -2222,12 +2256,24 @@ def train_cli() -> None:
     require(res.returncode == 0, f"launch.train failed: {res.stderr}")
 
 
+def smoke_rglru_launches() -> dict:
+    """The RG-LRU launches of one loss + gradient of the recurrentgemma
+    smoke model: each RG-LRU block's forward (twice under remat) and its
+    backward."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("recurrentgemma_2b")
+    n = cfg.pattern_for_depth().count("rglru")
+    return {"rglru_scan": n * (2 if cfg.remat else 1), "rglru_scan_bwd": n}
+
+
 def phase_training(card: str, out: dict) -> None:
     """Training (slice D) with every kernel's launch count set to 0: the
     smoke families, the Trainer and a resume against the CPU, full-width
     internlm2_1_8b steps, a full-width gradient against the CPU and the
-    CLI. Training reaches none of the port's kernels: every count must
-    still be 0 after."""
+    CLI. Of the port's kernels training reaches only the RG-LRU's two,
+    in the recurrentgemma smoke gradient (xlstm trains through
+    ``chunked_scan``): exactly its blocks' launches, every other count
+    still 0 after."""
     zero_kernel_counts()
     timed("training/smoke", train_smoke)
     timed("training/full width", train_full_width, card)
@@ -2236,15 +2282,18 @@ def phase_training(card: str, out: dict) -> None:
     out["train_launches"] = kernel_counts()
     print(f"[train] kernel launches over the training phase: "
           f"{out['train_launches']}")
-    require(not any(out["train_launches"].values()),
-            f"training launched a kernel: {out['train_launches']}")
+    expect = dict.fromkeys(out["train_launches"], 0)
+    expect.update(smoke_rglru_launches())
+    require(out["train_launches"] == expect,
+            f"training launches {out['train_launches']}, expected {expect}")
 
 
 # -- phase 12: sharding, the dry run and the examples ---------------------
 
-DRYRUN_ARCH = "internlm2_1_8b"
-DRYRUN_CELLS = (("train_4k", "single"), ("train_4k", "multi"),
-                ("decode_32k", "single"), ("decode_32k", "multi"))
+DRYRUN_CELLS = (("internlm2_1_8b", "train_4k", "single"),
+                ("internlm2_1_8b", "train_4k", "multi"),
+                ("internlm2_1_8b", "decode_32k", "single"),
+                ("internlm2_1_8b", "decode_32k", "multi"))
 # a train cell traces all 8 microbatches op by op through DTensor's
 # dispatch on the host, minutes at full depth: its depth is cut to 2
 # blocks here (decode cells run whole)
@@ -2278,17 +2327,18 @@ def _finish(proc: subprocess.Popen, what: str, timeout: float) -> str:
     return out
 
 
-def start_dryruns(out_dir: Path) -> dict:
-    """One ``launch.dryrun`` process per cell, all started together (each
-    starts its own fake world of 256 or 512 ranks)."""
+def start_dryruns(out_dir: Path, cells) -> dict:
+    """One ``launch.dryrun`` process per (arch, shape, mesh) cell, all
+    started together (each starts its own fake world of 256 or 512
+    ranks); train cells cut to ``DRYRUN_TRAIN_LAYERS`` blocks."""
     procs = {}
-    for shape, mesh in DRYRUN_CELLS:
+    for arch, shape, mesh in cells:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-               "cuda", "--arch", DRYRUN_ARCH, "--shape", shape, "--mesh",
+               "cuda", "--arch", arch, "--shape", shape, "--mesh",
                mesh, "--out", str(out_dir), "--force"]
         if shape.startswith("train"):
             cmd += ["--layers", str(DRYRUN_TRAIN_LAYERS)]
-        procs[(shape, mesh)] = (_subprocess(cmd), time.perf_counter())
+        procs[(arch, shape, mesh)] = (_subprocess(cmd), time.perf_counter())
     return procs
 
 
@@ -2332,6 +2382,12 @@ def rules_argument_bytes(rec: dict) -> int:
             b = sp.train_batch_specs(cfg, seq, batch, device="cpu")
             trees = [(p, ps), (o, sh.params_shardings_like(o, p, ps, mesh)),
                      (b, sh.batch_shardings(b, mesh))]
+        elif kind == "prefill":
+            p = sp.abstract_params(cfg, torch.bfloat16, device="cpu")
+            b = sp.train_batch_specs(cfg, seq, batch, device="cpu")
+            trees = [(p, sh.params_shardings(
+                         p, mesh, inference=rec["tp_only_params"])),
+                     (b, sh.batch_shardings(b, mesh))]
         else:
             p = sp.abstract_params(cfg, torch.bfloat16, device="cpu")
             st = sp.abstract_decode_state(cfg, batch, seq, device="cpu")
@@ -2351,27 +2407,30 @@ def rules_argument_bytes(rec: dict) -> int:
     return total
 
 
-def finish_dryruns(procs: dict, out_dir: Path, card: str, out: dict
-                   ) -> None:
+def finish_dryruns(procs: dict, out_dir: Path, card: str,
+                   tag: str = "sharded") -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.launch import roofline as rl
     rows = {}
-    for (shape, mesh), (proc, t0) in procs.items():
-        out_file = out_dir / f"{DRYRUN_ARCH}__{shape}__{mesh}.json"
+    for (arch, shape, mesh), (proc, t0) in procs.items():
+        out_file = out_dir / f"{arch}__{shape}__{mesh}.json"
         try:
-            _finish(proc, f"dry run {shape} {mesh}", 900)
+            _finish(proc, f"dry run {arch} {shape} {mesh}", 900)
         except AssertionError:
             if out_file.exists():     # the cell's own error and traceback
                 print(out_file.read_text()[-4000:], file=sys.stderr)
             raise
         wall = time.perf_counter() - t0
         rec = json.loads(out_file.read_text())
-        require(rec["status"] == "ok", f"dry run {shape} {mesh}: {rec}")
+        require(rec["status"] == "ok", f"dry run {arch} {shape} {mesh}: "
+                f"{rec}")
         mem = rec["memory"]
         expect = rules_argument_bytes(rec)
-        row = rl.roofline_row(DRYRUN_ARCH, shape, mesh, out_dir)
-        cut = (f"{rec['n_layers']} of 24 blocks"
-               if rec["n_layers"] != 24 else "whole")
-        print(f"[sharded] dry run {DRYRUN_ARCH} {shape} {mesh} "
+        row = rl.roofline_row(arch, shape, mesh, out_dir)
+        depth = get_config(arch).n_layers
+        cut = (f"{rec['n_layers']} of {depth} blocks"
+               if rec["n_layers"] != depth else "whole")
+        print(f"[{tag}] dry run {arch} {shape} {mesh} "
               f"({rec['mesh']}, {cut}): trace {rec['trace_s']!r} s "
               f"(process {wall:.1f} s); per device: argument "
               f"{mem['argument_size_in_bytes']} B (rules' shards "
@@ -2383,15 +2442,15 @@ def finish_dryruns(procs: dict, out_dir: Path, card: str, out: dict
               f"entries per substrate "
               f"{[x.get('lut_feasible') for x in rec.get('substrates', [])]}"
               f"; card {card}")
-        print(f"[sharded] roofline {shape} {mesh} (H100 constants; "
-              f"analytic cost of all 24 blocks, collectives of the traced "
-              f"ones): {row}")
+        print(f"[{tag}] roofline {arch} {shape} {mesh} (H100 constants; "
+              f"analytic cost of all {depth} blocks, collectives of the "
+              f"traced ones): {row}")
         require(mem["argument_size_in_bytes"] == expect,
-                f"dry run {shape} {mesh}: argument bytes "
+                f"dry run {arch} {shape} {mesh}: argument bytes "
                 f"{mem['argument_size_in_bytes']} != rules' {expect}")
-        rows[f"{shape} {mesh}"] = {"trace_s": rec["trace_s"],
-                                   "n_layers": rec["n_layers"]}
-    out["dryrun"] = rows
+        rows[f"{arch} {shape} {mesh}"] = {"trace_s": rec["trace_s"],
+                                          "n_layers": rec["n_layers"]}
+    return rows
 
 
 def finish_examples(procs: dict) -> None:
@@ -2512,12 +2571,12 @@ def phase_sharded(card: str, out: dict) -> None:
     work = ROOT / "build" / "chip_smoke_sharded"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    dry = start_dryruns(work / "dryrun")
+    dry = start_dryruns(work / "dryrun", DRYRUN_CELLS)
     ex = start_examples(work / "train_tiny_ckpt")
     try:
         timed("sharded/examples", finish_examples, ex)
-        timed("sharded/dry run", finish_dryruns, dry, work / "dryrun", card,
-              out)
+        out["dryrun"] = timed("sharded/dry run", finish_dryruns, dry,
+                              work / "dryrun", card)
     finally:
         for proc in list(ex.values()) + [p for p, _ in dry.values()]:
             if proc.poll() is None:
@@ -2527,13 +2586,517 @@ def phase_sharded(card: str, out: dict) -> None:
           f"s wall")
 
 
-def timed(label: str, fn, *args) -> None:
+# -- phase 13: the recurrent scans (slice F) ----------------------------------
+
+# mLSTM and sLSTM against their plain versions on the card, relative to
+# the output's largest |entry| (tests/test_torch_gpu.py's SCAN_RTOL): the
+# kernel sums C q and n q over hd terms in another order than torch's
+# einsum, and exp / tanh / log1p need not round as torch's build does (a
+# few fp32 ulps, each carried through the state). The RG-LRU's two
+# kernels are held bitwise.
+SCAN_RTOL = 4e-6
+# the main path's batch and length: recurrentgemma_2b and xlstm_1_3b
+# forwards, recurrentgemma_2b's training steps
+SCAN_B, SCAN_S = 2, 4096
+# parity shapes, (B, S, d) and (B, S, H, hd): the smoke widths, then the
+# full widths, each at S = 1, at S = 200 (not a multiple of 128 nor of
+# the kernels' prefetch depth) and at the main path's S = 4096
+PARITY_LENGTHS = (1, 200, SCAN_S)
+# xlstm_1_3b's whole stack with the kernels against the plain loops, in
+# fp32 at this shorter S (the plain mLSTM loop updates the (2, 4, 512,
+# 512) state in ~15 ops a step), within XLSTM_FP32_PATH_RTOL of the
+# largest logit: the kernels' rounding, a few ulps of each block's
+# output, through the ill-conditioned random-init stack
+XLSTM_PLAIN_S = 512
+RG_TRAIN_STEPS = 2
+RECURRENT_DRYRUN_CELLS = (("recurrentgemma_2b", "train_4k", "single"),
+                          ("recurrentgemma_2b", "train_4k", "multi"),
+                          ("recurrentgemma_2b", "prefill_32k", "single"),
+                          ("recurrentgemma_2b", "prefill_32k", "multi"),
+                          ("xlstm_1_3b", "prefill_32k", "single"),
+                          ("xlstm_1_3b", "prefill_32k", "multi"))
+SCAN_KERNELS = ("rglru_scan", "rglru_scan_bwd", "mlstm_scan", "slstm_scan")
+# the substring of each scan's CUDA kernel name in a profile
+SCAN_KERNEL_NAMES = {"rglru_scan": "rglru_scan_fwd",
+                     "rglru_scan_bwd": "rglru_scan_bwd",
+                     "mlstm_scan": "mlstm_scan_fwd",
+                     "slstm_scan": "slstm_scan_fwd"}
+
+
+def scan_inputs(kind: str, shape, gen) -> tuple:
+    """Random inputs of one scan at ``shape``, drawn as the blocks make
+    them: RG-LRU decays in (0, 1); the mLSTM's k scaled by 1/sqrt(hd) and
+    its forget gate a logsigmoid; the sLSTM's forget pre-activation with
+    the +3 bias."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+    if kind in ("rglru_scan", "rglru_scan_bwd"):
+        a = torch.rand(shape, generator=gen, device="cuda") * 0.99 + 0.005
+        if kind == "rglru_scan":
+            return a, rnd(*shape)
+        from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+        return a, rglru_scan_ref(a, rnd(*shape)), rnd(*shape)
+    if kind == "mlstm_scan":
+        B, S, H, hd = shape
+        return (rnd(*shape), rnd(*shape) / math.sqrt(hd), rnd(*shape),
+                rnd(B, S, H), F.logsigmoid(rnd(B, S, H) + 3.0))
+    z, i, f, o = (rnd(*shape) for _ in range(4))
+    return z, i, f + 3.0, o
+
+
+def scan_fns(kind: str) -> tuple:
+    """(kernel wrapper, plain version) of one scan."""
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    return {"rglru_scan": (rglru_scan, rglru_scan_ref),
+            "rglru_scan_bwd": (rglru_scan_bwd, rglru_scan_bwd_ref),
+            "mlstm_scan": (mlstm_scan, mlstm_scan_ref),
+            "slstm_scan": (slstm_scan, slstm_scan_ref)}[kind]
+
+
+def scan_shapes(kind: str, S: int) -> list:
+    """The smoke width and the full width of a scan at length S."""
+    if kind == "mlstm_scan":
+        return [(SCAN_B, S, 4, 16), (SCAN_B, S, 4, 512)]
+    d = 2048 if kind == "slstm_scan" else 2560
+    return [(SCAN_B, S, 64), (SCAN_B, S, d)]
+
+
+def scan_bound_ms(kind: str, shape) -> tuple:
+    """The least time for one scan at ``shape``: each input read and each
+    output written once over the HBM rate, or its fp32 operations over
+    the fp32 rate, the larger. RG-LRU: a multiply and an add a step
+    (three forms the backward); mLSTM: 5 B S H hd^2 (roofline.py); sLSTM:
+    about 25 a step, each transcendental counted as one."""
+    n = math.prod(shape)
+    if kind == "rglru_scan":
+        nbytes, ops = 12 * n, 2 * n
+    elif kind == "rglru_scan_bwd":
+        nbytes, ops = 20 * n, 3 * n
+    elif kind == "mlstm_scan":
+        B, S, H, hd = shape
+        nbytes, ops = 4 * (4 * n + 2 * B * S * H), 5 * n * hd
+    else:
+        nbytes, ops = 20 * n, 25 * n
+    b, o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
+
+
+def scan_parity(out: dict) -> None:
+    """Each scan kernel against its plain version on the card at the
+    smoke and full widths, S = 1, 200 and 4096: the RG-LRU's bitwise,
+    the mLSTM's and sLSTM's within SCAN_RTOL of the largest |h|."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    errs = {}
+    for kind in SCAN_KERNELS:
+        kern, plain = scan_fns(kind)
+        worst_abs = worst_rel = 0.0
+        for S in PARITY_LENGTHS:
+            for shape in scan_shapes(kind, S):
+                args = scan_inputs(kind, shape, gen)
+                n0 = kern.launches
+                got = kern(*args)
+                torch.cuda.synchronize()
+                require(kern.launches == n0 + 1, f"{kind} did not launch")
+                ref = plain(*args)
+                got, ref = ((got,), (ref,)) if kind != "rglru_scan_bwd" \
+                    else (got, ref)
+                for a, b in zip(got, ref):
+                    err = max_abs_err(a, b)
+                    rel = err / max(float(b.abs().max()), 1e-30)
+                    worst_abs, worst_rel = max(worst_abs, err), max(
+                        worst_rel, rel)
+                    if kind.startswith("rglru"):
+                        require(torch.equal(a, b), f"{kind} {shape}: "
+                                f"differs from its plain version by {err}")
+                    else:
+                        require(rel <= SCAN_RTOL, f"{kind} {shape}: "
+                                f"{rel} of the largest |h|")
+                del args, got, ref
+        errs[kind] = worst_abs
+        held = "bitwise" if kind.startswith("rglru") else f"rtol {SCAN_RTOL}"
+        print(f"[scan] {kind} against its plain version on the card at "
+              f"{[scan_shapes(kind, S) for S in PARITY_LENGTHS]}: max "
+              f"|diff| {worst_abs!r}, {worst_rel!r} of the largest |out| "
+              f"({held})")
+    out["scan_max_abs_err"] = errs
+    torch.cuda.empty_cache()
+
+
+def scan_timing(card: str, out: dict) -> None:
+    """Each scan at the main path's full width (B=2, S=4096): CUDA events
+    over the wrapper (host work included) and the plain version by
+    events, beside the bound. Its device-only time comes from the
+    profiled forward or training step of the path that launches it
+    (``scan_device_ms``)."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rows = {}
+    for kind in SCAN_KERNELS:
+        kern, plain = scan_fns(kind)
+        shape = scan_shapes(kind, SCAN_S)[1]
+        args = scan_inputs(kind, shape, gen)
+        ms = cuda_ms(lambda: kern(*args), reps=10)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=1, warmup=0)
+        bound, by = scan_bound_ms(kind, shape)
+        rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by=by, shape=list(shape))
+        print(f"[scan] {kind} {shape}: ms={ms!r} plain_ms={plain_ms!r} "
+              f"bound_ms={bound!r} ({by}); card {card}")
+        del args
+    out["scan_time"] = rows
+    torch.cuda.empty_cache()
+
+
+def scan_device_ms(out: dict, profiled: dict, per_window: dict) -> None:
+    """Each scan's device-only ms per launch at the main path's shape:
+    its kernels' time in a profiled forward or step over its launches
+    there; printed beside its bound."""
+    for k, ms in profiled.items():
+        if per_window.get(k):
+            row = out["scan_time"][k]
+            row["device_ms"] = None if ms is None else ms / per_window[k]
+            dev = row["device_ms"]
+            print(f"[scan] {k} device_only_ms={dev!r} per launch (profiled "
+                  f"path, {per_window[k]} launches) bound_ms="
+                  f"{row['bound_ms']!r} device_bound_share="
+                  f"{row['bound_ms'] / dev if dev else None!r}")
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """The recurrent blocks run the scans' plain versions on the card (the
+    loops over time the port ran before the kernels)."""
+    from repro_torch.models import recurrent
+    names = ("rglru_scan", "mlstm_scan", "slstm_scan")
+    saved = {n: getattr(recurrent, n) for n in names}
+    for n in names:
+        setattr(recurrent, n, scan_fns(n)[1])
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(recurrent, n, fn)
+
+
+def full_width_model(arch: str, **over):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(arch), **over)
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    return cfg, params
+
+
+def lm_forward(params, cfg, toks):
+    """The logits of ``lm.forward``."""
+    from repro_torch.models import lm
+    return lm.forward(params, cfg, toks)[0]
+
+
+def long_forward(cfg, params, toks, label: str, card: str) -> tuple:
+    """``lm.forward`` at the main path's length without autograd: its
+    launches (counts set to 0 just before, read just after), its logits,
+    then its time by CUDA events and the scans' device time by
+    torch.profiler over one more forward."""
+    import torch
+
+    def fwd():
+        with torch.no_grad():
+            return lm_forward(params, cfg, toks)
+    zero_kernel_counts()
+    logits = fwd()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    ms = cuda_ms(fwd, reps=2, warmup=0)
+    prof = profile_device(fwd)
+    scans = {k: op_ms(prof, SCAN_KERNEL_NAMES[k]) for k in SCAN_KERNELS}
+    idle = (1 - prof["busy_ms"] / prof["wall_ms"]) if prof["wall_ms"] \
+        else None
+    print(f"[scan] {label} lm.forward B={toks.shape[0]} S={toks.shape[1]} "
+          f"{cfg.dtype}, no autograd: {ms!r} ms (CUDA events, mean of 2); "
+          f"device busy {prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms, "
+          f"idle share {idle!r}; scans' device ms {scans}; launches {launches}"
+          f"; card {card}")
+    return logits, launches, dict(ms=ms, busy_ms=prof["busy_ms"],
+                                  idle=idle, scan_device_ms=scans)
+
+
+def recurrentgemma_forward(card: str, out: dict) -> None:
+    """recurrentgemma_2b at full width (26 layers, bf16, unscanned): one
+    forward at B=2, S=4096 through ``rglru_scan`` (18 launches) against
+    the same forward through the plain loops, bitwise (the kernel equals
+    its plain version bit for bit; every other op is the same)."""
+    import torch
+    cfg, params = full_width_model("recurrentgemma_2b", scan_layers=False)
+    toks = torch.randint(0, cfg.vocab_size, (SCAN_B, SCAN_S), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(41))
+    logits, launches, t = long_forward(cfg, params, toks, cfg.name, card)
+    n = cfg.pattern_for_depth().count("rglru")
+    expect = dict.fromkeys(launches, 0)
+    expect["rglru_scan"] = n
+    require(launches == expect, f"rg forward launches {launches}")
+    require(logits.shape == (SCAN_B, SCAN_S, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "rg forward logits")
+    with plain_scans(), torch.no_grad():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        ref = lm_forward(params, cfg, toks)
+        end.record()
+        end.synchronize()
+    err = max_abs_err(logits, ref)
+    print(f"[scan] {cfg.name} forward through the plain loops at the same "
+          f"S: {start.elapsed_time(end)!r} ms (CUDA events, one run); max "
+          f"|kernel - plain| over the logits {err!r} (bitwise required)")
+    require(err == 0.0, f"rg forward differs from the plain loops: {err}")
+    scan_device_ms(out, t["scan_device_ms"], launches)
+    out["rg_forward"] = dict(t, plain_ms=start.elapsed_time(end),
+                             launches=launches)
+    del params, logits, ref
+    torch.cuda.empty_cache()
+
+
+def xlstm_forward(card: str, out: dict) -> None:
+    """xlstm_1_3b at full width (48 layers, bf16): one forward at B=2,
+    S=4096 without autograd, one ``mlstm_scan`` or ``slstm_scan`` launch
+    per block; then the whole stack in fp32 at S=512 through the kernels
+    against the plain loops, within XLSTM_FP32_PATH_RTOL of the largest
+    logit."""
+    import torch
+    cfg, params = full_width_model("xlstm_1_3b")
+    gen = torch.Generator("cuda").manual_seed(43)
+    toks = torch.randint(0, cfg.vocab_size, (SCAN_B, SCAN_S), device="cuda",
+                         generator=gen)
+    logits, launches, t = long_forward(cfg, params, toks, cfg.name, card)
+    kinds = cfg.pattern_for_depth()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(mlstm_scan=kinds.count("mlstm"),
+                  slstm_scan=kinds.count("slstm"))
+    require(launches == expect, f"xlstm forward launches {launches}")
+    require(logits.shape == (SCAN_B, SCAN_S, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "xlstm forward logits")
+    del logits
+    scan_device_ms(out, t["scan_device_ms"], launches)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    short = toks[:, :XLSTM_PLAIN_S]
+    with torch.no_grad():
+        ours = lm_forward(params, f32, short).float()
+        with plain_scans():
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "se")
+            start.record()
+            ref = lm_forward(params, f32, short).float()
+            end.record()
+            end.synchronize()
+        k_ms = cuda_ms(lambda: lm_forward(params, f32, short), reps=1,
+                       warmup=0)
+    rel = max_abs_err(ours, ref) / float(ref.abs().max())
+    print(f"[scan] {cfg.name} whole stack fp32 at S={XLSTM_PLAIN_S}: "
+          f"kernels {k_ms!r} ms, plain loops {start.elapsed_time(end)!r} ms "
+          f"(CUDA events); max |diff| / max |logit| {rel!r} (rtol "
+          f"{XLSTM_FP32_PATH_RTOL})")
+    require(rel <= XLSTM_FP32_PATH_RTOL, f"xlstm kernels vs plain: {rel}")
+    out["xlstm_forward"] = dict(t, launches=launches, fp32_rel=rel,
+                                plain_ms_short=start.elapsed_time(end),
+                                ms_short=k_ms)
+    del params, ours, ref
+    torch.cuda.empty_cache()
+
+
+def recurrentgemma_train_child() -> int:
+    """``python chip_smoke.py --recurrent-train``: full-width, full-depth
+    recurrentgemma_2b as ``launch/train.py --full`` builds it
+    (``dryrun_config``: bf16 compute, fp32 params, scanned, remat;
+    AdamW), RG_TRAIN_STEPS Trainer steps at B=2, S=4096, in a process of
+    its own (the step peaks at ~78 GB of the card's 80). Prints one JSON
+    line: the launches of the steps (counts set to 0 just before), losses,
+    step times, peak memory, and a profiled step's scan device times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.launch.specs import dryrun_config
+    from repro_torch.optim.adamw import OptimizerConfig
+    from repro_torch.train.step import default_optimizer_kind
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dryrun_config(get_config("recurrentgemma_2b"))
+    ocfg = OptimizerConfig(kind=default_optimizer_kind(cfg), lr=1e-3,
+                           warmup_steps=10, total_steps=RG_TRAIN_STEPS)
+    t = Trainer(cfg, ocfg, DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=SCAN_S, global_batch=SCAN_B),
+                TrainerConfig(steps=RG_TRAIN_STEPS, ckpt_dir=None),
+                device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(t.params))
+    events = []
+    step_fn = t._step_fn
+
+    def timed_step(*a):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        r = step_fn(*a)
+        end.record()
+        events.append((start, end))
+        return r
+    t._step_fn = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t.run()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    rec = dict(n_params=n_params, n_layers=cfg.n_layers, optimizer=ocfg.kind,
+               remat=cfg.remat, scan_layers=cfg.scan_layers,
+               losses=[m["loss"] for m in t.metrics_log],
+               host_ms=[x * 1e3 for x in t.step_times],
+               event_ms=[s.elapsed_time(e) for s, e in events],
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               total_bytes=torch.cuda.get_device_properties(0).total_memory,
+               launches=launches,
+               n_rglru=cfg.pattern_for_depth().count("rglru"))
+    t._step_fn = step_fn
+    t.tcfg.steps += 1
+    prof = profile_device(t.run)
+    rec["profiled_step"] = dict(
+        busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+        scan_device_ms={k: op_ms(prof, SCAN_KERNEL_NAMES[k])
+                        for k in ("rglru_scan", "rglru_scan_bwd")})
+    rec["finite"] = bool(np.all(np.isfinite(rec["losses"])))
+    print(json.dumps(rec))
+    return 0
+
+
+def recurrentgemma_train(card: str, out: dict) -> None:
+    """RG_TRAIN_STEPS full-width recurrentgemma_2b Trainer steps at S=4096
+    through the RG-LRU kernels, in a child process (the card's memory to
+    itself): each step launches the forward scan twice per RG-LRU block
+    (remat recomputes it) and the backward scan once."""
+    import torch
+    torch.cuda.empty_cache()
+    print(f"[scan] before the training child: {torch.cuda.memory_reserved()}"
+          f" bytes reserved by this process")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--recurrent-train"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0, f"recurrentgemma training child: exit "
+            f"{res.returncode}: {res.stderr[-3000:]}")
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    n, steps = rec["n_rglru"], RG_TRAIN_STEPS
+    expect = dict.fromkeys(rec["launches"], 0)
+    expect.update(rglru_scan=steps * n * (2 if rec["remat"] else 1),
+                  rglru_scan_bwd=steps * n)
+    tokens = SCAN_B * SCAN_S
+    print(f"[scan] recurrentgemma_2b training at full width and depth "
+          f"({rec['n_layers']} layers, {rec['n_params']} params, "
+          f"{rec['optimizer']}, remat={rec['remat']}, scan_layers="
+          f"{rec['scan_layers']}), {steps} Trainer steps at B={SCAN_B} "
+          f"S={SCAN_S}: losses {rec['losses']}; host-clock step ms "
+          f"{rec['host_ms']}; CUDA-event step ms {rec['event_ms']} "
+          f"({tokens / (rec['event_ms'][-1] * 1e-3)!r} tokens/s at the "
+          f"last); max_memory_allocated {rec['peak_bytes']} of "
+          f"{rec['total_bytes']} bytes; launches {rec['launches']}; a "
+          f"profiled step: device busy {rec['profiled_step']['busy_ms']!r} "
+          f"ms of {rec['profiled_step']['wall_ms']!r} ms, scans' device ms "
+          f"{rec['profiled_step']['scan_device_ms']}; card {card}")
+    require(rec["finite"] and len(rec["losses"]) == steps,
+            f"rg training losses {rec['losses']}")
+    require(rec["launches"] == expect, f"rg training launches "
+            f"{rec['launches']}, expected {expect}")
+    scan_device_ms(out, rec["profiled_step"]["scan_device_ms"],
+                   {"rglru_scan_bwd": n})
+    out["rg_train"] = rec
+
+
+def recurrentgemma_grad_parity(out: dict) -> None:
+    """A 2-layer (both RG-LRU) fp32 recurrentgemma_2b at full width: one
+    loss + gradient on the card, through both RG-LRU kernels, against the
+    CPU (the plain versions)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(
+        get_config("recurrentgemma_2b"), n_layers=2, dtype=torch.float32,
+        scan_layers=False, remat=False)
+    params = lm.init_lm(torch.Generator().manual_seed(3), cfg)
+    batch = train_batch(cfg, 2, 128, torch.Generator().manual_seed(4))
     t0 = time.perf_counter()
-    fn(*args)
+    lr_, gr = loss_and_grads(cfg, params, batch)
+    cpu_s = time.perf_counter() - t0
+    zero_kernel_counts()
+    lc, gc = loss_and_grads(cfg, _tree_to(params, "cuda"),
+                            _tree_to(batch, "cuda"))
+    launches = kernel_counts()
+    rel = abs(lc - lr_) / abs(lr_)
+    cmp = compare_grads(gc, gr, TRAIN_GRAD_RTOL)
+    print(f"[scan] 2-layer fp32 recurrentgemma_2b at full width (B=2 "
+          f"S=128): loss cpu {lr_!r} |cuda - cpu|/cpu {rel!r}; "
+          f"{cmp['leaves']} grad leaves within {cmp['grad_rel']!r} of each "
+          f"leaf's max |g| (rtol {TRAIN_GRAD_RTOL}), {cmp['noise_leaves']} "
+          f"noise leaves; launches {launches} ({cpu_s:.1f} s on the CPU)")
+    require(rel <= TRAIN_LOSS_RTOL, f"rg 2-layer loss {lc} vs {lr_}")
+    expect = dict.fromkeys(launches, 0)
+    expect.update(rglru_scan=2, rglru_scan_bwd=2)
+    require(launches == expect, f"rg 2-layer launches {launches}")
+    out["rg_grad_launches"] = launches
+    del params, gr, gc
+    torch.cuda.empty_cache()
+
+
+def phase_recurrent(card: str, out: dict) -> None:
+    """The recurrent scans (slice F): each kernel against its plain version
+    and timed; full-width recurrentgemma_2b and xlstm_1_3b forwards at
+    S=4096, recurrentgemma_2b training at S=4096 and a 2-layer gradient
+    against the CPU, each path with its launch counts set to 0 just
+    before; then the recurrent families' dry-run cells, each a process of
+    its own, all started together."""
+    timed("recurrent/parity", scan_parity, out)
+    timed("recurrent/timing", scan_timing, card, out)
+    timed("recurrent/recurrentgemma forward", recurrentgemma_forward, card,
+          out)
+    timed("recurrent/recurrentgemma training", recurrentgemma_train, card,
+          out)
+    work = ROOT / "build" / "chip_smoke_recurrent"
+    work.mkdir(parents=True, exist_ok=True)
+    dry = start_dryruns(work / "dryrun", RECURRENT_DRYRUN_CELLS)
+    try:
+        timed("recurrent/recurrentgemma gradient", recurrentgemma_grad_parity,
+              out)
+        timed("recurrent/xlstm forward", xlstm_forward, card, out)
+        out["dryrun_recurrent"] = timed("recurrent/dry run", finish_dryruns,
+                                        dry, work / "dryrun", card, "scan")
+    finally:
+        for proc, _ in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    res = fn(*args)
     print(f"[phase] {label}: {time.perf_counter() - t0:.2f} s")
+    return res
 
 
 def main() -> int:
+    if sys.argv[1:] == ["--recurrent-train"]:      # phase 13's child
+        sys.path.insert(0, str(ROOT / "src"))
+        return recurrentgemma_train_child()
     try:
         import torch
     except ImportError:
@@ -2586,6 +3149,7 @@ def main() -> int:
         timed("fleet", phase_fleet, scfg, card, out)
         timed("training", phase_training, card, out)
         timed("sharded", phase_sharded, card, out)
+        timed("recurrent scans", phase_recurrent, card, out)
     except Exception:                    # every phase failure is fatal
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2603,9 +3167,31 @@ def main() -> int:
         "internlm2_1_8b serving": out["pim_launches"],
         "recurrentgemma_2b serving": out["pim_launches_rg"],
         "fleet (internlm2_1_8b, decode)": out["fleet"]["launches"]["pim_mac"]}
+    by_path.update({k: {} for k in SCAN_KERNELS})
     for k in by_path:
         by_path[k]["train"] = out["train_launches"][k]
         by_path[k]["sharded"] = out["sharded_launches"][k]
+        by_path[k]["recurrentgemma_2b forward (S=4096)"] = \
+            out["rg_forward"]["launches"][k]
+        by_path[k]["recurrentgemma_2b training (S=4096)"] = \
+            out["rg_train"]["launches"][k]
+        by_path[k]["recurrentgemma_2b 2-layer gradient"] = \
+            out["rg_grad_launches"][k]
+        by_path[k]["xlstm_1_3b forward (S=4096)"] = \
+            out["xlstm_forward"]["launches"][k]
+    scans = {
+        "rglru_scan": ("rglru_scan.cu", "src/repro/models/recurrent.py:116 "
+                       "(jax.lax.associative_scan in rglru_block; no Pallas "
+                       "kernel)"),
+        "rglru_scan_bwd": ("rglru_scan.cu", "src/repro/models/recurrent.py"
+                           ":116 (the associative scan's transpose under "
+                           "jax.grad; no Pallas kernel)"),
+        "mlstm_scan": ("mlstm_scan.cu", "src/repro/models/recurrent.py:209 "
+                       "(lax.scan of _mlstm_step in chunked_scan; no Pallas "
+                       "kernel)"),
+        "slstm_scan": ("slstm_scan.cu", "src/repro/models/recurrent.py:282 "
+                       "(lax.scan of _slstm_step in chunked_scan; no Pallas "
+                       "kernel)")}
     kernels = [
         dict(name="dp_stages", route="cuda",
              source="src/repro_torch/csrc/dp_stages.cu",
@@ -2633,7 +3219,12 @@ def main() -> int:
              max_abs_err=out["max_abs_err"]["pim_mac"],
              at_recurrentgemma_shape=out["pim_time_rg"],
              **out["pim_time"]),
-    ]
+    ] + [dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
+              replaces=rep, launches=sum(by_path[k].values()),
+              launches_by_path=by_path[k],
+              max_abs_err=out["scan_max_abs_err"][k], library_ms=None,
+              **out["scan_time"][k])
+         for k, (src, rep) in scans.items()]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

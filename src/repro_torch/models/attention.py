@@ -151,6 +151,15 @@ def _chunked_causal_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int,
     return out.to(q.dtype)
 
 
+def _left_pad_time(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (B, S, ...) after ``n`` zero positions, the values of
+    ``F.pad(x, (0, 0, 0, 0, n, 0))``. A ``cat``: on a batch-sharded
+    DTensor, torch 2.11's rule for ``pad`` fails (IndexError while
+    redistributing), its rule for ``cat`` does not."""
+    zeros = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    return torch.cat([zeros, x], dim=1)
+
+
 def _local_windowed_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int):
     """Sliding-window attention: per q-chunk, attend to the preceding
     ``window`` keys only - O(S * window) compute, exact."""
@@ -162,8 +171,8 @@ def _local_windowed_sdpa(q, k, v, cfg: ModelConfig, q_chunk: int):
     span = W + q_chunk
     dev = q.device
     # left-pad keys so every chunk slices a fixed [span] window
-    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, W, 0)).float()
-    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, W, 0)).float()
+    kp = _left_pad_time(k, W).float()
+    vp = _left_pad_time(v, W).float()
     scale = 1.0 / math.sqrt(hd)
     qc = q.reshape(B, nq, q_chunk, KV, g, hd).permute(1, 0, 3, 4, 2, 5)
     # chunk-invariant window mask: the offset k - q = (kk - W) - qq is the

@@ -1,16 +1,26 @@
 """Recurrent sequence mixers: RG-LRU (Griffin/RecurrentGemma) and
 xLSTM's mLSTM / sLSTM cells.
 
-Training/prefill runs each recurrence as a sequential loop over time in
-fp32: the JAX package's ``lax.associative_scan`` (RG-LRU) and two-level
-checkpointed ``lax.scan`` (``chunked_scan``, whose 128-step chunks are
-checkpointed here too while autograd records) compute the same
-recurrences (the associative scan in another association order, so
-RG-LRU outputs differ from it by fp32 rounding only: within 1e-5 of the
-reference per block in fp32, tests/test_torch_family_modules.py).
-Decode is a single state update - this is what makes the state O(1) in
-context for these archs - and equals the sequential loop's step. Every
-update keeps the reference's fp32 / compute-dtype casts.
+Training/prefill runs each recurrence over the whole sequence in fp32
+through one op per block (``repro_torch.kernels``): ``rglru_scan``
+(differentiable; its backward is the ``rglru_scan_bwd`` op),
+``mlstm_scan`` and ``slstm_scan``. Each launches a CUDA kernel on CUDA
+tensors and runs the sequential loop over time (the kernel's plain
+version) on CPU tensors. The JAX package's ``lax.associative_scan``
+(RG-LRU) and two-level checkpointed ``lax.scan`` (``chunked_scan``)
+compute the same recurrences (the associative scan in another
+association order, so RG-LRU outputs differ from it by fp32 rounding
+only: within 1e-5 of the reference per block in fp32,
+tests/test_torch_family_modules.py).
+
+The mLSTM and sLSTM ops have no backward yet. While autograd records
+(grad mode on and an input of the scan requiring grad), ``mlstm_block``
+and ``slstm_block`` therefore run the loop of ``chunked_scan`` instead,
+whose 128-step chunks are checkpointed as the reference's are: a
+dispatch on grad mode, not a fallback. Decode is a single state update
+- this is what makes the state O(1) in context for these archs - and
+equals the sequential loop's step. Every update keeps the reference's
+fp32 / compute-dtype casts.
 """
 from __future__ import annotations
 
@@ -20,6 +30,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+from repro_torch.kernels.mlstm_scan.ref import mlstm_step as _mlstm_step
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.slstm_scan.ops import slstm_scan
+from repro_torch.kernels.slstm_scan.ref import slstm_step as _slstm_step
 from repro_torch.models.common import ModelConfig, batch_only, dense_init
 from repro_torch.models.mlp import _gelu
 
@@ -63,6 +78,11 @@ def chunked_scan(f, init, xs, chunk: int = _SCAN_CHUNK):
         carry, y = checkpoint(_scan, f, carry, xc, use_reentrant=False)
         ys.append(y)
     return carry, torch.cat(ys)
+
+
+def _records(*ts: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +148,8 @@ def rglru_block(p, x, cfg: ModelConfig) -> torch.Tensor:
     h = x @ p["w_in_x"].to(dt)
     h, _ = _conv1d_causal(p["conv_w"], h)
     a, b = _rglru_gates(p, h)
-    # h_t = a_t * h_{t-1} + b_t from h_{-1} = 0, sequentially in fp32
-    hs = []
-    ht = torch.zeros_like(b[:, 0])
-    for t in range(b.shape[1]):
-        ht = a[:, t] * ht + b[:, t]
-        hs.append(ht)
-    y = torch.stack(hs, dim=1).to(dt)
+    # h_t = a_t * h_{t-1} + b_t from h_{-1} = 0, in fp32
+    y = rglru_scan(a.contiguous(), b.contiguous()).to(dt)
     return (y * g) @ p["w_out"].to(dt)
 
 
@@ -200,41 +215,26 @@ def _mlstm_qkv(p, x, cfg):
     return q, k, v, i_gate, f_gate, o_gate
 
 
-def _mlstm_step(carry, inp):
-    """Stabilized mLSTM recurrence (one time step, batched).
-
-    carry: C (B,H,hd,hd), n (B,H,hd), m (B,H)
-    inp:   q,k,v (B,H,hd); i,f (B,H)
-    """
-    C, n, m = carry
-    q, k, v, i, f = inp
-    m_new = torch.maximum(f + m, i)
-    fg = torch.exp(f + m - m_new)[..., None]
-    ig = torch.exp(i - m_new)[..., None]
-    C = fg[..., None] * C + ig[..., None] * (k[..., :, None]
-                                             * v[..., None, :])
-    n = fg * n + ig * k
-    h_num = torch.einsum("bhij,bhi->bhj", C, q.to(C.dtype))
-    h_den = torch.clamp_min(torch.abs(torch.einsum(
-        "bhi,bhi->bh", n, q.to(n.dtype))), 1.0)
-    h = h_num / h_den[..., None]
-    return (C, n, m_new), h
-
-
 def mlstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     dt = x.dtype
     dev = x.device
     q, k, v, i, f, o = _mlstm_qkv(p, x, cfg)
-    q32, k32, v32 = (t.float().transpose(0, 1) for t in (q, k, v))
-    i32 = i.transpose(0, 1)
-    f32 = F.logsigmoid(f).transpose(0, 1)
-    init = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=dev),
-            torch.zeros((B, H, hd), dtype=torch.float32, device=dev),
-            torch.full((B, H), -torch.inf, dtype=torch.float32, device=dev))
-    _, hs = chunked_scan(_mlstm_step, init, (q32, k32, v32, i32, f32))
-    h = hs.transpose(0, 1).to(dt).reshape(B, S, H * hd)
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32 = F.logsigmoid(f)
+    if _records(q32, k32, v32, i, f32):
+        init = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                            device=dev),
+                torch.zeros((B, H, hd), dtype=torch.float32, device=dev),
+                torch.full((B, H), -torch.inf, dtype=torch.float32,
+                           device=dev))
+        _, hs = chunked_scan(_mlstm_step, init, tuple(
+            t.transpose(0, 1) for t in (q32, k32, v32, i, f32)))
+        hs = hs.transpose(0, 1)
+    else:
+        hs = mlstm_scan(*(t.contiguous() for t in (q32, k32, v32, i, f32)))
+    h = hs.to(dt).reshape(B, S, H * hd)
     return (h * o) @ p["w_out"].to(dt)
 
 
@@ -280,20 +280,6 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig
     }
 
 
-def _slstm_step(carry, inp):
-    """carry: c,n,m (B,d); inp: z,i,f,o (B,d) fp32 (pre-activation)."""
-    c, n, m = carry
-    z, i, f, o = inp
-    logf = F.logsigmoid(f)
-    m_new = torch.maximum(logf + m, i)
-    fg = torch.exp(logf + m - m_new)
-    ig = torch.exp(i - m_new)
-    c = fg * c + ig * torch.tanh(z)
-    n = fg * n + ig
-    h = torch.sigmoid(o) * c / torch.clamp_min(n, 1.0)
-    return (c, n, m_new), h
-
-
 def _slstm_pre(p, x):
     dt = x.dtype
     z = (x @ p["wz"].to(dt)).float()
@@ -308,12 +294,17 @@ def slstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
     dt = x.dtype
     dev = x.device
     z, i, f, o = _slstm_pre(p, x)
-    init = (torch.zeros((B, d), dtype=torch.float32, device=dev),
-            torch.zeros((B, d), dtype=torch.float32, device=dev),
-            torch.full((B, d), -torch.inf, dtype=torch.float32, device=dev))
-    _, hs = chunked_scan(_slstm_step, init,
-                         tuple(t.transpose(0, 1) for t in (z, i, f, o)))
-    h = hs.transpose(0, 1).to(dt)
+    if _records(z, i, f, o):
+        init = (torch.zeros((B, d), dtype=torch.float32, device=dev),
+                torch.zeros((B, d), dtype=torch.float32, device=dev),
+                torch.full((B, d), -torch.inf, dtype=torch.float32,
+                           device=dev))
+        _, hs = chunked_scan(_slstm_step, init,
+                             tuple(t.transpose(0, 1) for t in (z, i, f, o)))
+        hs = hs.transpose(0, 1)
+    else:
+        hs = slstm_scan(*(t.contiguous() for t in (z, i, f, o)))
+    h = hs.to(dt)
     return h @ p["w_out"].to(dt)
 
 

@@ -132,8 +132,9 @@ def _leaves(tree):
 class HeteroServeEngine:
     """Time-sliced decode engine with placement-driven weight tiering.
 
-    Canonically constructed through ``repro_torch.api.engine(...)``; a
-    direct call without ``substrate`` runs on the default ``tpu-pool``.
+    Canonically constructed through ``repro_torch.api.engine(...)``; the
+    chip-count/rho keywords remain for direct use and are folded into a
+    ``tpu-pool`` substrate when none is passed, as in the JAX package.
 
     ``device`` runs the scheduler's LUT builds, the decode state and the
     tiering; ``params`` must already live there. ``seed`` is accepted
@@ -142,14 +143,21 @@ class HeteroServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, *,
                  t_slice_ms: Optional[float] = None,
-                 max_batch: int = 16, seed: int = 0,
+                 n_hp_chips: int = 4, n_lp_chips: int = 4,
+                 tokens_per_task: int = 8, rho: float = 64.0,
+                 max_batch: int = 16, peak_tasks: int = 10, seed: int = 0,
                  substrate=None, lut_points: Optional[int] = None,
                  compiler=None, device=DEFAULT_DEVICE):
         from repro_torch.core.solvers import make_solver
         from repro_torch.core.substrate import make_substrate
         dev = resolve_device(device)
         if substrate is None:
-            substrate = make_substrate("tpu-pool")
+            # rho: weight-stationary reuse on TPU = tokens sharing one
+            # weight fetch per batch step (batched decode reads W once)
+            substrate = make_substrate(
+                "tpu-pool", n_hp_chips=n_hp_chips, n_lp_chips=n_lp_chips,
+                tokens_per_task=tokens_per_task, rho=rho,
+                peak_tasks=peak_tasks)
         if cfg is None:
             from repro_torch.configs import get_smoke_config
             cfg = get_smoke_config("internlm2_1_8b")

@@ -494,3 +494,158 @@ def test_cuda_training_matches_cpu(compression):
     np.testing.assert_allclose(ours, ref, rtol=TRAINER_RTOL)
     assert (kops.dp_stages.launches, lops.minplus_combine.launches,
             pops.pim_matmul.launches) == counts
+
+
+# -- the recurrent scans (rglru_scan, mlstm_scan, slstm_scan) -----------------
+
+# mLSTM and sLSTM against their plain versions on the card, relative to
+# the output's largest |entry|: the kernel sums C q and n q over hd terms
+# in another order than torch's einsum, and exp / tanh / log1p need not
+# round as torch's build does (a few fp32 ulps, each carried through the
+# state)
+SCAN_RTOL = 4e-6
+# (B, S, d): S = 1, S not a multiple of the kernels' 16- and 8-step
+# prefetch, recurrentgemma_2b's and xlstm_1_3b's widths
+ELEMENTWISE_SCAN_SHAPES = [(2, 1, 64), (3, 37, 64), (2, 300, 2560),
+                           (2, 129, 2048)]
+# (B, S, H, hd): the smoke head, ragged heads, xlstm_1_3b's full head
+MLSTM_SHAPES = [(2, 1, 4, 16), (2, 37, 4, 16), (1, 20, 2, 100),
+                (2, 5, 1, 33), (2, 200, 4, 512)]
+
+
+def _scan_ops():
+    from repro_torch.kernels.mlstm_scan import ops as mops
+    from repro_torch.kernels.rglru_scan import ops as rops
+    from repro_torch.kernels.slstm_scan import ops as sops
+    return rops, mops, sops
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d", ELEMENTWISE_SCAN_SHAPES)
+def test_cuda_rglru_scan_forward_and_backward_bitwise(B, S, d):
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+    rops, _, _ = _scan_ops()
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S * 31 + d)
+    a = torch.rand((B, S, d), generator=g, device=dev) * 0.99 + 0.005
+    b = torch.randn((B, S, d), generator=g, device=dev)
+    dh = torch.randn((B, S, d), generator=g, device=dev)
+    n0, m0 = rops.rglru_scan.launches, rops.rglru_scan_bwd.launches
+    h = rops.rglru_scan(a, b)
+    da, db = rops.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    assert (rops.rglru_scan.launches, rops.rglru_scan_bwd.launches) == \
+        (n0 + 1, m0 + 1)
+    assert torch.equal(h, rglru_scan_ref(a, b))
+    rda, rdb = rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(da, rda) and torch.equal(db, rdb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,d", ELEMENTWISE_SCAN_SHAPES)
+def test_cuda_slstm_scan_matches_plain_version(B, S, d):
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    _, _, sops = _scan_ops()
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S * 17 + d)
+    z, i, f, o = (torch.randn((B, S, d), generator=g, device=dev)
+                  for _ in range(4))
+    f = f + 3.0                                   # the forget-open bias
+    n0 = sops.slstm_scan.launches
+    h = sops.slstm_scan(z, i, f, o)
+    torch.cuda.synchronize()
+    assert sops.slstm_scan.launches == n0 + 1
+    assert _rel(h, slstm_scan_ref(z, i, f, o)) <= SCAN_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,hd", MLSTM_SHAPES)
+def test_cuda_mlstm_scan_matches_plain_version(B, S, H, hd):
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+    _, mops, _ = _scan_ops()
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S * 13 + hd)
+    q, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
+               for _ in range(3))
+    k = k / hd ** 0.5
+    i = torch.randn((B, S, H), generator=g, device=dev)
+    f = torch.nn.functional.logsigmoid(
+        torch.randn((B, S, H), generator=g, device=dev) + 3.0)
+    n0 = mops.mlstm_scan.launches
+    h = mops.mlstm_scan(q, k, v, i, f)
+    torch.cuda.synchronize()
+    assert mops.mlstm_scan.launches == n0 + 1
+    assert _rel(h, mlstm_scan_ref(q, k, v, i, f)) <= SCAN_RTOL
+
+
+@pytest.mark.gpu
+def test_cuda_scans_raise_instead_of_falling_back():
+    rops, mops, sops = _scan_ops()
+    dev = _card()
+    x = torch.zeros((2, 5, 8), device=dev)
+    counts = (rops.rglru_scan.launches, mops.mlstm_scan.launches,
+              sops.slstm_scan.launches)
+    with pytest.raises(TypeError, match="float32"):
+        rops.rglru_scan(x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        sops.slstm_scan(*(x.transpose(0, 1),) * 4)
+    with pytest.raises(ValueError, match="operands on"):
+        rops.rglru_scan(x, x.cpu())
+    q = torch.zeros((2, 5, 1, 513), device=dev)
+    gi = torch.zeros((2, 5, 1), device=dev)
+    with pytest.raises(ValueError, match="hd <= 512"):
+        mops.mlstm_scan(q, q, q, gi, gi)
+    assert counts == (rops.rglru_scan.launches, mops.mlstm_scan.launches,
+                      sops.slstm_scan.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "xlstm_1_3b"])
+def test_cuda_recurrent_blocks_launch_one_scan_each(arch):
+    """Each recurrent block of the smoke model on the card: one scan
+    launch per block without autograd; RG-LRU also while autograd
+    records, with one backward launch; the outputs and the RG-LRU's
+    gradients within FAMILY_ATOL of the CPU's (fp32, TF32 off)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm, recurrent
+    rops, mops, sops = _scan_ops()
+    dev = _card()
+    cfg = get_smoke_config(arch)
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 37, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i, kind in enumerate(cfg.pattern_for_depth()):
+            if kind == "attn":
+                continue
+            mix = params["stack"][f"tail_{i}"]["mix"]
+            block = getattr(recurrent, f"{kind}_block")
+            op = {"rglru": rops.rglru_scan, "mlstm": mops.mlstm_scan,
+                  "slstm": sops.slstm_scan}[kind]
+            n0 = op.launches
+            with torch.no_grad():
+                y = block(_to(mix, dev), x.to(dev), cfg)
+            assert op.launches == n0 + 1, kind
+            assert float((y.cpu() - block(mix, x, cfg)).abs().max()) \
+                <= FAMILY_ATOL
+            if kind != "rglru":
+                continue
+            b0 = rops.rglru_scan_bwd.launches
+            grads = []
+            for d in (dev, torch.device("cpu")):
+                live = {k: v.to(d).requires_grad_() for k, v in mix.items()}
+                block(live, x.to(d), cfg).square().sum().backward()
+                grads.append({k: v.grad.cpu() for k, v in live.items()})
+            assert rops.rglru_scan_bwd.launches == b0 + 1
+            for k, gr in grads[1].items():
+                err = float((grads[0][k] - gr).abs().max())
+                assert err <= 1e-4 * max(float(gr.abs().max()), 1e-30), k
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

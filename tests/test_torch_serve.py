@@ -324,6 +324,36 @@ def test_hetero_engine_matches_jax(name, monkeypatch):
     _assert_tokens_match(toks_t, toks_j, rec_j.logits)
 
 
+# the reference's defaults, then each keyword moved off its default
+CHIP_KEYWORDS = [
+    {},
+    dict(n_hp_chips=2, n_lp_chips=6),
+    dict(tokens_per_task=4, rho=16.0),
+    dict(peak_tasks=20),
+]
+
+
+@pytest.mark.parametrize("kw", CHIP_KEYWORDS,
+                         ids=["defaults", "chips", "task-rho", "peak"])
+def test_hetero_engine_chip_keywords_match_jax(kw):
+    """A direct ``HeteroServeEngine`` without a substrate folds
+    ``n_hp_chips``, ``n_lp_chips``, ``tokens_per_task``, ``rho`` and
+    ``peak_tasks`` into its ``tpu-pool`` substrate as the reference's
+    does: the same slice length and ``SliceReport`` sequence."""
+    from repro.serve.hetero import HeteroServeEngine as JaxEngine
+    cfg_j, cfg_t = jax_smoke("internlm2_1_8b"), get_smoke_config(
+        "internlm2_1_8b")
+    pj, pt = _jax_params(cfg_j)
+    ej = JaxEngine(cfg_j, pj, max_batch=4, **kw)
+    et = hetero_mod.HeteroServeEngine(cfg_t, pt, max_batch=4, device="cpu",
+                                      **kw)
+    assert et.substrate.name == ej.substrate.name == "tpu-pool"
+    assert et.t_slice_ms == ej.t_slice_ms
+    for n in workloads.SCENARIOS["case6_random"][:4]:
+        assert dataclasses.asdict(et.run_slice(min(n, 4)).report) == \
+            dataclasses.asdict(ej.run_slice(min(n, 4)).report)
+
+
 def test_hetero_engine_keywords_match_jax():
     """``t_slice_ms``, ``lut_points`` and a shared ``compiler``: the same
     reports as the reference's, and a second engine of the same shape
