@@ -203,6 +203,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12                 # dense int8 tensor cores
+TF32_OPS_PER_S = 495e12                  # dense TF32 tensor cores
 
 # Golden digests of the JAX package's LUTs (tests/test_multipool.py),
 # built at n_points=6, k_groups=64 for every registered substrate.
@@ -2599,9 +2600,24 @@ SCAN_RTOL = 4e-6
 # forwards, recurrentgemma_2b's training steps
 SCAN_B, SCAN_S = 2, 4096
 # parity shapes, (B, S, d) and (B, S, H, hd): the smoke widths, then the
-# full widths, each at S = 1, at S = 200 (not a multiple of 128 nor of
-# the kernels' prefetch depth) and at the main path's S = 4096
+# full widths, each at S = 1, at S = 200 (not a multiple of 128, of the
+# kernels' prefetch depth, nor of the mLSTM's 32- and the sLSTM's
+# 64-step chunks) and at the main path's S = 4096
 PARITY_LENGTHS = (1, 200, SCAN_S)
+# and one mLSTM case where the clamp max(|n . q|, 1) binds at most steps
+# (input-gate spikes of this size at 3% of them), so that h depends on
+# the stabilizer m itself: full width, the main path's S
+MLSTM_CLAMP_SPIKES = 6.0
+# and the mLSTM and sLSTM where memory is long, at full width and the
+# main path's S: forget-gate biases of +6 (the top of the xLSTM paper's
+# forget-gate init range) and +10 (the gate within ~5e-5 of 1), so that
+# the state carries nearly every earlier step. There the plain fp32
+# mLSTM loop's own rounding, carried through ~4,096 steps of state, is
+# of the order of SCAN_RTOL (its f + m - m' rounds to 0): the mLSTM
+# kernel is held within SCAN_RTOL to ref.mlstm_scan_exact (float64, the
+# fp32 loop's stabilizer), and the fp32 loop's distance from that is
+# printed beside; the sLSTM kernel to its plain loop, as above
+LONG_MEMORY_BIASES = (6.0, 10.0)
 # xlstm_1_3b's whole stack with the kernels against the plain loops, in
 # fp32 at this shorter S (the plain mLSTM loop updates the (2, 4, 512,
 # 512) state in ~15 ops a step), within XLSTM_FP32_PATH_RTOL of the
@@ -2623,11 +2639,13 @@ SCAN_KERNEL_NAMES = {"rglru_scan": "rglru_scan_fwd",
                      "slstm_scan": "slstm_scan_fwd"}
 
 
-def scan_inputs(kind: str, shape, gen) -> tuple:
+def scan_inputs(kind: str, shape, gen, spikes: float = 0.0,
+                forget_bias: float = 3.0) -> tuple:
     """Random inputs of one scan at ``shape``, drawn as the blocks make
     them: RG-LRU decays in (0, 1); the mLSTM's k scaled by 1/sqrt(hd) and
-    its forget gate a logsigmoid; the sLSTM's forget pre-activation with
-    the +3 bias."""
+    its forget gate a logsigmoid (``spikes`` added to its input gate at
+    3% of the steps); the sLSTM's forget pre-activation; both forget
+    gates with the blocks' +3 bias, or ``forget_bias``."""
     import torch
     import torch.nn.functional as F
 
@@ -2641,10 +2659,14 @@ def scan_inputs(kind: str, shape, gen) -> tuple:
         return a, rglru_scan_ref(a, rnd(*shape)), rnd(*shape)
     if kind == "mlstm_scan":
         B, S, H, hd = shape
-        return (rnd(*shape), rnd(*shape) / math.sqrt(hd), rnd(*shape),
-                rnd(B, S, H), F.logsigmoid(rnd(B, S, H) + 3.0))
+        i = rnd(B, S, H)
+        if spikes:
+            i = i + spikes * (torch.rand((B, S, H), generator=gen,
+                                         device="cuda") < 0.03)
+        return (rnd(*shape), rnd(*shape) / math.sqrt(hd), rnd(*shape), i,
+                F.logsigmoid(rnd(B, S, H) + forget_bias))
     z, i, f, o = (rnd(*shape) for _ in range(4))
-    return z, i, f + 3.0, o
+    return z, i, f + forget_bias, o
 
 
 def scan_fns(kind: str) -> tuple:
@@ -2690,38 +2712,63 @@ def scan_bound_ms(kind: str, shape) -> tuple:
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
+def mlstm_tensor_bound_ms(shape, chunk: int = 32) -> float:
+    """A second bound of ``mlstm_scan``, for its chunkwise design rather
+    than the model's count: per (row, head) and chunk of L steps, Q C and
+    C's update (2 L hd^2 operations each) and Q K^T (2 L^2 hd) on the
+    tensor cores in 3xTF32 (three TF32 products each) at the TF32 rate,
+    and P V (2 L^2 hd) on the FMA units at the fp32 rate."""
+    B, S, H, hd = shape
+    steps = B * H * S
+    tensor = 3 * steps * (4 * hd * hd + 2 * chunk * hd)
+    return (tensor / TF32_OPS_PER_S
+            + steps * 2 * chunk * hd / FP32_OPS_PER_S) * 1e3
+
+
 def scan_parity(out: dict) -> None:
     """Each scan kernel against its plain version on the card at the
-    smoke and full widths, S = 1, 200 and 4096: the RG-LRU's bitwise,
-    the mLSTM's and sLSTM's within SCAN_RTOL of the largest |h|."""
+    smoke and full widths, S = 1, 200 and 4096 (the mLSTM also where its
+    clamp binds): the RG-LRU's bitwise, the mLSTM's and sLSTM's within
+    SCAN_RTOL of the largest |h|."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(31)
     errs = {}
     for kind in SCAN_KERNELS:
         kern, plain = scan_fns(kind)
         worst_abs = worst_rel = 0.0
-        for S in PARITY_LENGTHS:
-            for shape in scan_shapes(kind, S):
-                args = scan_inputs(kind, shape, gen)
-                n0 = kern.launches
-                got = kern(*args)
-                torch.cuda.synchronize()
-                require(kern.launches == n0 + 1, f"{kind} did not launch")
-                ref = plain(*args)
-                got, ref = ((got,), (ref,)) if kind != "rglru_scan_bwd" \
-                    else (got, ref)
-                for a, b in zip(got, ref):
-                    err = max_abs_err(a, b)
-                    rel = err / max(float(b.abs().max()), 1e-30)
-                    worst_abs, worst_rel = max(worst_abs, err), max(
-                        worst_rel, rel)
-                    if kind.startswith("rglru"):
-                        require(torch.equal(a, b), f"{kind} {shape}: "
-                                f"differs from its plain version by {err}")
-                    else:
-                        require(rel <= SCAN_RTOL, f"{kind} {shape}: "
-                                f"{rel} of the largest |h|")
-                del args, got, ref
+        cases = [(shape, 0.0) for S in PARITY_LENGTHS
+                 for shape in scan_shapes(kind, S)]
+        if kind == "mlstm_scan":
+            cases.append((scan_shapes(kind, SCAN_S)[1], MLSTM_CLAMP_SPIKES))
+        for shape, spikes in cases:
+            args = scan_inputs(kind, shape, gen, spikes)
+            n0 = kern.launches
+            got = kern(*args)
+            torch.cuda.synchronize()
+            require(kern.launches == n0 + 1, f"{kind} did not launch")
+            ref = plain(*args)
+            got, ref = ((got,), (ref,)) if kind != "rglru_scan_bwd" \
+                else (got, ref)
+            for a, b in zip(got, ref):
+                err = max_abs_err(a, b)
+                rel = err / max(float(b.abs().max()), 1e-30)
+                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
+                                                                rel)
+                if kind.startswith("rglru"):
+                    require(torch.equal(a, b), f"{kind} {shape}: differs "
+                            f"from its plain version by {err}")
+                else:
+                    require(rel <= SCAN_RTOL, f"{kind} {shape} (spikes "
+                            f"{spikes}): {rel} of the largest |h|")
+            if spikes:
+                q, k, v, i, f = args
+                binds = clamp_share(q, k, i, f)
+                print(f"[scan] {kind} {shape} with input-gate spikes of "
+                      f"{spikes}: the clamp binds at {binds!r} of the "
+                      f"steps; max |diff| {err!r}, {rel!r} of the largest "
+                      f"|h| (rtol {SCAN_RTOL})")
+                require(binds > 0.5, f"the clamp binds at only {binds}")
+            del args, got, ref
         errs[kind] = worst_abs
         held = "bitwise" if kind.startswith("rglru") else f"rtol {SCAN_RTOL}"
         print(f"[scan] {kind} against its plain version on the card at "
@@ -2729,7 +2776,62 @@ def scan_parity(out: dict) -> None:
               f"|diff| {worst_abs!r}, {worst_rel!r} of the largest |out| "
               f"({held})")
     out["scan_max_abs_err"] = errs
+    scan_long_memory(out, gen)
     torch.cuda.empty_cache()
+
+
+def scan_long_memory(out: dict, gen) -> None:
+    """The mLSTM and sLSTM kernels at full width and S = 4096 with
+    forget gates near 1 (LONG_MEMORY_BIASES), within SCAN_RTOL of the
+    largest |h|: the mLSTM's of ``mlstm_scan_exact``, the fp32 loop's
+    own distance from it printed beside; the sLSTM's of its loop."""
+    import torch
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_exact
+    rows = {}
+    for kind in ("mlstm_scan", "slstm_scan"):
+        kern, plain = scan_fns(kind)
+        shape = scan_shapes(kind, SCAN_S)[1]
+        for bias in LONG_MEMORY_BIASES:
+            args = scan_inputs(kind, shape, gen, forget_bias=bias)
+            got = kern(*args)
+            ref = plain(*args)
+            row = dict(to_loop=max_abs_err(got, ref) / float(
+                ref.abs().max()))
+            if kind == "mlstm_scan":
+                exact = mlstm_scan_exact(*args)
+                top = float(exact.abs().max())
+                row.update(to_exact=float((got.double() - exact).abs()
+                                          .max()) / top,
+                           loop_to_exact=float((ref.double() - exact).abs()
+                                               .max()) / top)
+                del exact
+            held = row.get("to_exact", row["to_loop"])
+            print(f"[scan] {kind} {shape} forget bias +{bias}: "
+                  f"{row!r} of the largest |h| "
+                  f"(held: {held!r}, rtol {SCAN_RTOL})")
+            require(held <= SCAN_RTOL, f"{kind} {shape} forget bias "
+                    f"+{bias}: {held} of the largest |h|")
+            rows[f"{kind} +{bias}"] = row
+            del args, got, ref
+    out["scan_long_memory"] = rows
+
+
+def clamp_share(q, k, i, f) -> float:
+    """The share of (row, step, head) where |n_t . q_t| < 1, n the
+    mLSTM's stabilized normalizer (``ref.mlstm_step``'s n, by its own
+    recurrence; C is not needed for it)."""
+    import torch
+    B, S, H, hd = q.shape
+    n = q.new_zeros((B, H, hd))
+    m = torch.full((B, H), -torch.inf, device=q.device)
+    below = torch.zeros((), dtype=torch.int64, device=q.device)
+    for t in range(S):
+        m_new = torch.maximum(f[:, t] + m, i[:, t])
+        fg = torch.exp(f[:, t] + m - m_new)[..., None]
+        n = fg * n + torch.exp(i[:, t] - m_new)[..., None] * k[:, t]
+        m = m_new
+        below += ((n * q[:, t]).sum(-1).abs() < 1).sum()
+    return int(below) / (B * S * H)
 
 
 def scan_timing(card: str, out: dict) -> None:
@@ -2750,8 +2852,11 @@ def scan_timing(card: str, out: dict) -> None:
         bound, by = scan_bound_ms(kind, shape)
         rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by, shape=list(shape))
+        if kind == "mlstm_scan":
+            rows[kind]["bound_ms_3xtf32"] = mlstm_tensor_bound_ms(shape)
         print(f"[scan] {kind} {shape}: ms={ms!r} plain_ms={plain_ms!r} "
-              f"bound_ms={bound!r} ({by}); card {card}")
+              f"bound_ms={bound!r} ({by}; chunkwise in 3xTF32: "
+              f"{rows[kind].get('bound_ms_3xtf32')!r}); card {card}")
         del args
     out["scan_time"] = rows
     torch.cuda.empty_cache()
@@ -2769,7 +2874,10 @@ def scan_device_ms(out: dict, profiled: dict, per_window: dict) -> None:
             print(f"[scan] {k} device_only_ms={dev!r} per launch (profiled "
                   f"path, {per_window[k]} launches) bound_ms="
                   f"{row['bound_ms']!r} device_bound_share="
-                  f"{row['bound_ms'] / dev if dev else None!r}")
+                  f"{row['bound_ms'] / dev if dev else None!r}"
+                  + (f" 3xtf32_bound_share="
+                     f"{row['bound_ms_3xtf32'] / dev if dev else None!r}"
+                     if "bound_ms_3xtf32" in row else ""))
 
 
 @contextlib.contextmanager
@@ -2822,15 +2930,32 @@ def long_forward(cfg, params, toks, label: str, card: str) -> tuple:
     ms = cuda_ms(fwd, reps=2, warmup=0)
     prof = profile_device(fwd)
     scans = {k: op_ms(prof, SCAN_KERNEL_NAMES[k]) for k in SCAN_KERNELS}
+    parts = scan_kernel_parts(prof)
     idle = (1 - prof["busy_ms"] / prof["wall_ms"]) if prof["wall_ms"] \
         else None
     print(f"[scan] {label} lm.forward B={toks.shape[0]} S={toks.shape[1]} "
           f"{cfg.dtype}, no autograd: {ms!r} ms (CUDA events, mean of 2); "
           f"device busy {prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms, "
-          f"idle share {idle!r}; scans' device ms {scans}; launches {launches}"
-          f"; card {card}")
+          f"idle share {idle!r}; scans' device ms {scans}, by CUDA kernel "
+          f"{parts}; launches {launches}; card {card}")
     return logits, launches, dict(ms=ms, busy_ms=prof["busy_ms"],
-                                  idle=idle, scan_device_ms=scans)
+                                  idle=idle, scan_device_ms=scans,
+                                  scan_kernel_ms=parts)
+
+
+def scan_kernel_parts(prof: dict) -> dict:
+    """Device ms of each CUDA kernel of the scans in a profile, by its
+    name (an op's kernels share the op's prefix: ``mlstm_scan_fwd_gates``,
+    ``_intra``, ``_inter``; ``slstm_scan_fwd_local``, ``_combine``,
+    ``_apply``)."""
+    parts: dict = {}
+    for name, ms in prof["by_name"].items():
+        for k in SCAN_KERNELS:
+            at = name.find(SCAN_KERNEL_NAMES[k])
+            if at >= 0:
+                short = name[at:].split("(")[0].split("<")[0]
+                parts[short] = parts.get(short, 0.0) + ms
+    return parts
 
 
 def recurrentgemma_forward(card: str, out: dict) -> None:

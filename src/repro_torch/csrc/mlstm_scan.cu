@@ -8,198 +8,790 @@
 // Stands in for the JAX package's lax.scan of
 // src/repro/models/recurrent.py::_mlstm_step inside chunked_scan (no
 // Pallas kernel: XLA runs the scan there). Plain version:
-// repro_torch/kernels/mlstm_scan/ref.py::mlstm_scan_ref.
+// repro_torch/kernels/mlstm_scan/ref.py::mlstm_scan_ref; the chunkwise
+// algorithm below is modelled step for step, for the CPU tests, by
+// repro_torch/kernels/mlstm_scan/chunked.py.
 //
 // Inputs: q, k, v (B, S, H, hd) fp32 (k already scaled by 1/sqrt(hd)),
 // i, f (B, S, H) fp32 (f the log forget gate), all contiguous; output
-// h (B, S, H, hd) fp32.
+// h (B, S, H, hd) fp32; scratch from the wrapper.
 //
-// Bound on an H100 SXM: operations. Each step updates and reads the whole
-// hd x hd state, 5 B S H hd^2 fp32 operations (launch/roofline.py): at
-// xlstm_1_3b's width (H = 4, hd = 512), B = 2, S = 4096, 4.3e10, 0.64 ms
-// at 67 TFLOP/s, against 0.08 ms for its 268 MB of q, k, v and h.
+// Bound on an H100 SXM: operations. The model's count is 5 B S H hd^2
+// fp32 operations (launch/roofline.py): at xlstm_1_3b's width (H = 4,
+// hd = 512), B = 2, S = 4096, 4.3e10, 0.64 ms at 67 TFLOP/s, against
+// 0.08 ms for its 268 MB of q, k, v and h.
 //
-// Design: the state never leaves the chip. One block per (column tile of
-// 32 columns of C, head, batch row) holds its hd x 32 slice of C in
-// registers across all S steps: warp w owns rows [w RPT, (w+1) RPT), lane
-// j column j of the tile, RPT entries a thread. Every block recomputes
-// the stabilizer m and the normalizer n (hd) itself, so blocks never
-// synchronize with one another. A step stages q_t and k_t in shared
-// memory (read as broadcasts: every lane of a warp reads the same row),
-// updates the thread's entries of C, and sums C[i, j] q_t[i] over its
-// rows; the warps' partial sums, and n . q_t, reduced across the block,
-// give h_t. The next step's inputs are loaded into registers while this
-// step runs. At hd = 512 that is 16 tiles x 4 heads x B blocks (128 at
-// B = 2) of 8 warps, each thread keeping 64 entries of C.
-// Parity: the updates of C and n round as the plain version's separate
-// products and sums (__fmul_rn / __fadd_rn, no contraction); exp is
-// expf, with no fast math, and max/clamp propagate NaN as torch's do.
-// The sums over i are taken in another order than torch's einsum, so h
-// agrees with the plain version to a tolerance, not bitwise.
+// Design: chunkwise. The sequence is cut into chunks of L = 32 steps;
+// a chunk's contribution is a few small matrix products instead of L
+// rank-1 updates, and the barriers fall from three a step to four a
+// chunk. Three kernels:
+//  1. mlstm_scan_fwd_gates, one warp per (row, head): the stabilizer m
+//     by the loop's own recurrence, serially, in fp32 and the loop's
+//     order (the clamp makes h depend on m itself, so it must be the
+//     loop's m); b_t, the sum of f from the chunk's start to t (never a
+//     sum over the whole sequence: over 4,096 steps its fp32 difference
+//     would lose the exponent's low digits); s_t = exp(b_t + (m_prev -
+//     m_t)), the decay of the chunk's incoming state to step t; w_s =
+//     exp((i_s - m_e) + (b_e - b_s)), input s's weight at the chunk's
+//     end e. Both are formed and exponentiated in double and rounded
+//     once to fp32: the chunk's last s decays the whole state, once a
+//     chunk, so its error compounds over every chunk a term stays live,
+//     and expf (within 2 ulp, not correctly rounded) is not enough
+//     where the forget gate is near 1. Off the serial chain.
+//  2. mlstm_scan_fwd_intra, one block per (chunk, head, row), all in
+//     parallel: P[t, s] = (q_t . k_s) exp((i_s - m_t) + (b_t - b_s)) for
+//     s <= t, 0 above the diagonal (L x L).
+//  3. mlstm_scan_fwd_inter, one block per (32 columns of C, head, row),
+//     its hd x 32 slice of C (kept as C^T) and n in shared memory, walks
+//     the chunks: num = s_t (Q C) + P V, den = s_t (Q n) + rowsum(P),
+//     h = num / max(|den|, 1); then C <- s_e C + K^T diag(w) V and
+//     n <- s_e n + K^T w. Warp w owns rows [w XW, (w + 1) XW) of C
+//     and n (XW = 16, 32 or 64; hd padded with zeros to 8 XW) and the
+//     same columns of the chunk's q and k, so those are private to it:
+//     it sums Q C over its rows (a split of the reduction across the 8
+//     warps, summed in fp32 through shared memory once a chunk) and
+//     updates its own rows with no block barrier. The next chunk's q
+//     (after Q C), k (after the sums are read) and P, s, w
+//     (double-buffered) load by cp.async while this chunk computes; V
+//     goes through registers into V^T and (diag(w) V)^T. The last
+//     chunk's state is never used, so it is not updated.
+// The products Q C, K^T diag(w) V and Q K^T run on the tensor cores,
+// mma.sync m16n8k8 in 3xTF32: each fp32 operand is split into a TF32
+// value and a TF32 remainder, and big x big + big x small + small x big
+// (the small terms first) keep fp32's accuracy, where plain TF32 keeps
+// about three digits. The tensor core's own fp32 accumulation rounds
+// toward zero, a bias of up to an ulp of the running sum per product, so
+// no accumulator outlives one 8-deep step: each step's three products go
+// into a fresh one, which is added to the sum (of Q C, Q K^T, or C
+// itself) in fp32 with round-to-nearest. Each truncation is then of one
+// step's size, and a sum's relative bias stays that of one step, however
+// many steps or chunks it spans. Likewise n's update sums the chunk's
+// K^T w apart (on the FMA units) and adds it to s_e n once, as C's adds
+// whole 8-deep steps: the state rounds a few times a chunk, not once a
+// term. Strides make every fragment read and every C^T access free of
+// bank conflicts (C^T and q rows: 4 mod 32 floats; k rows: 8 mod 32).
+// P V (32 terms a row) stays on the FMA units, so that it can skip
+// s > t.
+// Shared memory at hd = 512: 228,864 of the 232,448 bytes a block can
+// have, so one block (8 warps) a SM: 16 tiles x 4 heads x B blocks,
+// 128 at B = 2.
+// Parity: sums and the other products are fp32 fmaf/__fmul_rn/
+// __fadd_rn, exp is expf, with no fast math; max/clamp propagate NaN as
+// torch's do; a chunk's P V sums only s <= t, so a non-finite v_s
+// reaches no earlier h_t. The sums run in another order than torch's,
+// so h agrees with the plain version to a tolerance, not bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int TILE = 32;                 // columns of C per block
+constexpr int L = 32;                    // steps per chunk (one warp)
+constexpr int T = 32;                    // columns of C per inter block
+constexpr int W = 8;                     // warps per inter block
+constexpr int NT = W * 32;               // inter threads
+constexpr int PS = L + 4;                // row stride of P and V^T
+constexpr int RS = T + 8;                // row stride of the partial sums
+constexpr int SMALLS = L * PS + 2 * T * PS + 2 * L;      // one buffer
+constexpr int XS = 64;                   // hd columns a slice (intra)
+static_assert(XS == 4 << 4, "the intra loads take 16 vectors a row");
+static_assert(L * T / 4 == NT, "one output vector per thread");
+static_assert(L * L / 4 == NT, "one P vector per thread");
 
-// torch.maximum: NaN if either is NaN
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (a != a || a > b) ? a : b;
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(256)
-mlstm_scan_fwd(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ ipre,
-               const float* __restrict__ lf, float* __restrict__ h, int S,
-               int H, int hd) {
-  constexpr int LPT = (RPT + 31) / 32;   // q, k elements a thread stages
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int W = blockDim.x >> 5, nt = blockDim.x;
-  const int j = blockIdx.x * TILE + lane;
-  const bool jok = j < hd;
-  const int hh = blockIdx.y, bb = blockIdx.z;
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
 
-  extern __shared__ float sm[];
-  float* q_s = sm;
-  float* k_s = q_s + hd;
-  float* part = k_s + hd;                // (W, 32) partial sums of C q
-  float* nqp = part + W * TILE;          // (W) partial sums of n . q
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  const long long tstride = (long long)H * hd;        // one time step
-  const long long vbase = ((long long)bb * S * H + hh) * hd;
-  const long long gbase = (long long)bb * S * H + hh;
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  float C[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) C[r] = 0.0f;
-  float n[LPT];
-#pragma unroll
-  for (int l = 0; l < LPT; ++l) n[l] = 0.0f;
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// 3xTF32: x = big + small, each a TF32 value; a product of two such
+// sums without the small x small term keeps fp32's accuracy
+__device__ __forceinline__ void split(float x, unsigned& big,
+                                      unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;"
+      : "=r"(small) : "f"(__fsub_rn(x, __uint_as_float(big))));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A fragment (16 x 8, element (row, col) at p[row * ldr + col * ldc]) of
+// m16n8k8, split
+__device__ __forceinline__ void frag_a(const float* p, int ldr, int ldc,
+                                       int g, int q, unsigned (&ab)[4],
+                                       unsigned (&as)[4]) {
+  split(p[g * ldr + q * ldc], ab[0], as[0]);
+  split(p[(g + 8) * ldr + q * ldc], ab[1], as[1]);
+  split(p[g * ldr + (q + 4) * ldc], ab[2], as[2]);
+  split(p[(g + 8) * ldr + (q + 4) * ldc], ab[3], as[3]);
+}
+
+// B fragment (8 x 8, element (k, n) at p[n * ldn + k * ldk]), split
+__device__ __forceinline__ void frag_b(const float* p, int ldn, int ldk,
+                                       int g, int q, unsigned (&bb)[2],
+                                       unsigned (&bs)[2]) {
+  split(p[g * ldn + q * ldk], bb[0], bs[0]);
+  split(p[g * ldn + (q + 4) * ldk], bb[1], bs[1]);
+}
+
+// ---- 1. gates: m (serial), b, s, w ----------------------------------------
+// Every lane runs the same serial recurrence over the chunk's gates,
+// read as broadcasts from shared memory, and keeps step (chunk start +
+// lane)'s values. The gates arrive by cp.async GD chunks ahead. m is
+// fmaxf, one instruction on the serial chain; torch.maximum's NaN (once m
+// is NaN it stays NaN) is tracked off the chain. Steps past the sequence
+// read f = 0 and i = -inf: they leave m and b as they are.
+constexpr int GD = 8;                    // chunks of gates in flight
+__global__ void __launch_bounds__(32)
+mlstm_scan_fwd_gates(const float* __restrict__ ipre,
+                     const float* __restrict__ lf, float* __restrict__ mo,
+                     float* __restrict__ bo, float* __restrict__ so,
+                     float* __restrict__ wo, int S, int H, int NC) {
+  __shared__ float is[GD][L], fs[GD][L];
+  const int bh = blockIdx.x, bb = bh / H, hh = bh % H;
+  const int lane = threadIdx.x;
+  const long long g0 = (long long)bb * S * H + hh;
+  const long long o0 = (long long)bh * NC * L;
+  auto fetch = [&](int c) {              // chunk c's gates into slot c % GD
+    const int t = c * L + lane;
+    const bool ok = c < NC && t < S;
+    const long long o = g0 + (long long)(ok ? t : 0) * H;
+    cp4(&is[c % GD][lane], ipre + o, ok ? 4 : 0);
+    cp4(&fs[c % GD][lane], lf + o, ok ? 4 : 0);
+    cp_commit();
+  };
+  for (int c = 0; c < GD; ++c) fetch(c);
   float m = -INFINITY;
-
-  // step 0's inputs
-  float qr[LPT], kr[LPT], vr = 0.0f, ir, fr;
+  bool nan = false;
+  for (int c = 0; c < NC; ++c) {
+    const int c0 = c * L, t = c0 + lane, Lc = min(L, S - c0);
+    cp_wait<GD - 1>();
+    __syncwarp();
+    const float* ic = is[c % GD];
+    const float* fc = fs[c % GD];
+    const float it = ic[lane];
+    const float m_prev = nan ? NAN : m;
+    float b = 0.0f, my_m = 0.0f, my_b = 0.0f;
 #pragma unroll
-  for (int l = 0; l < LPT; ++l) {
-    const int e = threadIdx.x + l * nt;
-    qr[l] = e < hd ? q[vbase + e] : 0.0f;
-    kr[l] = e < hd ? k[vbase + e] : 0.0f;
+    for (int u = 0; u < L; ++u) {
+      const float fu = fc[u], iu = u < Lc ? ic[u] : -INFINITY;
+      const float a = __fadd_rn(fu, m);
+      m = fmaxf(a, iu);
+      nan = nan || a != a || iu != iu;
+      b = u == 0 ? fu : __fadd_rn(b, fu);
+      const bool mine = lane == u;
+      my_m = mine ? (nan ? NAN : m) : my_m;
+      my_b = mine ? b : my_b;
+    }
+    __syncwarp();                        // before the slot is refilled
+    fetch(c + GD);
+    const float me = nan ? NAN : m;      // the chunk's last step e
+    float s = 0.0f, w = 0.0f;
+    if (t < S) {
+      s = (float)exp((double)my_b + ((double)m_prev - (double)my_m));
+      w = (float)exp(((double)it - (double)me) +
+                     ((double)b - (double)my_b));
+    }
+    const long long o = o0 + c0 + lane;
+    mo[o] = my_m;
+    bo[o] = my_b;
+    so[o] = s;
+    wo[o] = w;
   }
-  if (jok) vr = v[vbase + j];
-  ir = ipre[gbase];
-  fr = lf[gbase];
+  cp_wait<0>();
+}
 
-  for (int t = 0; t < S; ++t) {
-    __syncthreads();                     // last step's readers are done
-#pragma unroll
-    for (int l = 0; l < LPT; ++l) {
-      const int e = threadIdx.x + l * nt;
-      if (e < hd) {
-        q_s[e] = qr[l];
-        k_s[e] = kr[l];
+// rows [0, L) x columns [x0, x1) of a chunk of q or k into dst (row
+// stride st, column x at x - dx), by threads [0, nthr) of which this is
+// thread id: thread id takes the 4 columns (id % cols) * 4 of every
+// (nthr / cols)-th row, cols = 1 << lcols vectors a row, a power of two
+// that divides nthr; zeros past the sequence and past hd
+template <bool VEC>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row0, int H, int hd,
+                                          int st, int Lc, int x0, int x1,
+                                          int dx, int id, int nthr,
+                                          int lcols) {
+  const int x = x0 + ((id & ((1 << lcols) - 1)) << 2);
+  if (x >= x1) return;
+  const int rstep = nthr >> lcols;
+  int row = id >> lcols;
+  const float* g = src + (row0 + (long long)row * H) * hd + x;
+  const long long gstep = (long long)rstep * H * hd;
+  float* d = dst + row * st + x - dx;
+  for (; row < L; row += rstep, g += gstep, d += rstep * st) {
+    if (VEC) {
+      const bool ok = row < Lc && x < hd;
+      cp16(d, ok ? g : src, ok ? 16 : 0);
+    } else {
+      for (int u = 0; u < 4; ++u) {
+        const bool ok = row < Lc && x + u < hd;
+        cp4(d + u, ok ? g + u : src, ok ? 4 : 0);
       }
     }
-    const float vj = vr, it = ir, ft = fr;
-    if (t + 1 < S) {                     // prefetch step t + 1
-      const long long o = vbase + (long long)(t + 1) * tstride;
+  }
+}
+
+// ---- 2. intra: P of every chunk --------------------------------------------
+// Four warps; warp w computes the 16 x 16 quarter (rows 16 (w / 2),
+// columns 16 (w % 2)) of Q K^T in 3xTF32, from hd-slices of the
+// chunk's q and k staged in shared memory, the next slice loading by
+// cp.async while this one is summed; then gates it.
+constexpr int IT = 128;                  // intra threads
+template <bool VEC>
+__global__ void __launch_bounds__(IT)
+mlstm_scan_fwd_intra(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ ipre,
+                     const float* __restrict__ mo,
+                     const float* __restrict__ bo, float* __restrict__ P,
+                     int S, int H, int hd, int NC) {
+  __shared__ __align__(16) float qs[2][L][XS + 4];
+  __shared__ __align__(16) float ks[2][L][XS + 4];
+  const int c = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int bh = bb * H + hh, c0 = c * L, Lc = min(L, S - c0);
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int t0 = 16 * (wid >> 1), s0 = 16 * (wid & 1);
+  const int hd8 = (hd + 7) & ~7;
+  const long long row0 = (long long)(bb * S + c0) * H + hh;
+  auto load = [&](int x0, int u) {
+    const int x1 = min(x0 + XS, hd8);
+    load_rows<VEC>(&qs[u][0][0], q, row0, H, hd, XS + 4, Lc, x0, x1, x0,
+                   tid, IT, 4);
+    load_rows<VEC>(&ks[u][0][0], k, row0, H, hd, XS + 4, Lc, x0, x1, x0,
+                   tid, IT, 4);
+    cp_commit();
+  };
+  float acc[2][4];
 #pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        const int e = threadIdx.x + l * nt;
-        if (e < hd) {
-          qr[l] = q[o + e];
-          kr[l] = k[o + e];
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[ni][r] = 0.0f;
+  load(0, 0);
+  for (int x0 = 0, u = 0; x0 < hd8; x0 += XS, u ^= 1) {
+    if (x0 + XS < hd8) {
+      load(x0 + XS, u ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int xn = min(XS, hd8 - x0);
+    for (int x = 0; x < xn; x += 8) {
+      unsigned ab[4], as[4], bb2[2][2], bs2[2][2];
+      frag_a(&qs[u][t0][x], XS + 4, 1, g, tq, ab, as);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        frag_b(&ks[u][s0 + 8 * ni][x], XS + 4, 1, g, tq, bb2[ni], bs2[ni]);
+      // each step's three products in a fresh accumulator, added in
+      // fp32: the tensor core's own fp32 accumulation rounds toward
+      // zero, a bias that over hd / 8 steps would exceed the tolerance
+      float d[2][4] = {};
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], as, bb2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], ab, bs2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], ab, bb2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[ni][r] = __fadd_rn(acc[ni][r], d[ni][r]);
+    }
+    __syncthreads();                     // before the buffer is refilled
+  }
+  const long long o = (long long)bh * NC * L + c0;
+  float* out = P + ((long long)bh * NC + c) * L * L;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int t = t0 + g + 8 * hf;
+    const float mt = mo[o + t], bt = bo[o + t];
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+      for (int cj = 0; cj < 2; ++cj) {
+        const int s = s0 + 8 * ni + 2 * tq + cj;
+        float p = 0.0f;
+        if (s <= t && t < Lc) {
+          const float is = ipre[(long long)(bb * S + c0 + s) * H + hh];
+          const float gt = expf(__fadd_rn(__fsub_rn(is, mt),
+                                          __fsub_rn(bt, bo[o + s])));
+          p = __fmul_rn(acc[ni][2 * hf + cj], gt);
+        }
+        out[t * L + s] = p;
+      }
+    }
+  }
+}
+
+// ---- 3. inter: the state, chunk after chunk --------------------------------
+struct Smem {
+  float *ct, *qb, *kb, *nv, *sb;         // C^T (T x st), q, k, n, smalls
+};
+
+// one buffer of a chunk's smalls: P (L x PS), V^T and (diag(w) V)^T
+// (T x PS), s and w (L each)
+struct Smalls {
+  float *pb, *vt, *vwt, *sv, *wv;
+};
+
+__device__ __forceinline__ Smem carve(float* sm, int st, int kbn, int hp) {
+  Smem s;
+  s.ct = sm;
+  s.qb = s.ct + T * st;
+  s.kb = s.qb + L * st;
+  s.nv = s.kb + kbn;
+  s.sb = s.nv + hp;
+  return s;
+}
+
+__device__ __forceinline__ Smalls smalls(const Smem& sh, int u) {
+  Smalls b;
+  b.pb = sh.sb + u * SMALLS;
+  b.vt = b.pb + L * PS;
+  b.vwt = b.vt + T * PS;
+  b.sv = b.vwt + T * PS;
+  b.wv = b.sv + L;
+  return b;
+}
+
+template <bool VEC, int XW>
+__global__ void __launch_bounds__(NT, 1)
+mlstm_scan_fwd_inter(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ P,
+                     const float* __restrict__ so,
+                     const float* __restrict__ wo, float* __restrict__ h,
+                     int S, int H, int hd, int NC, int st, int sk, int kbn) {
+  constexpr int HP = W * XW;             // hd padded to the warps' rows
+  constexpr int LXW = XW == 16 ? 2 : XW == 32 ? 3 : 4;
+  constexpr int MT = XW / 16;            // m16 tiles of this warp's rows
+  static_assert(XW == 4 << LXW, "XW is 16, 32 or 64");
+  extern __shared__ __align__(16) float sm[];
+  const Smem sh = carve(sm, st, kbn, HP);
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;  // mma fragment coordinates
+  const int j0 = blockIdx.x * T, hh = blockIdx.y, bb = blockIdx.z;
+  const int bh = bb * H + hh;
+  const int xbase = wid * XW, xend = xbase + XW;
+  const long long brow = (long long)bb * S * H + hh;  // (b, t=0, h) row
+  const long long g0 = (long long)bh * NC * L;         // gates, P
+
+  for (int e = tid; e < T * st; e += NT) sh.ct[e] = 0.0f;
+  for (int e = tid; e < HP; e += NT) sh.nv[e] = 0.0f;
+
+  // the smalls of chunk c into buffer u: P, s, w by cp.async; V into
+  // registers (stored by store_v once the loads have landed)
+  const int vs = tid >> 3, vj = (tid & 7) * 4;         // V element (s, j)
+  float vr[4], wr = 0.0f;
+  auto load_smalls = [&](int c, int u) {
+    const Smalls b = smalls(sh, u);
+    const float* pg = P + ((long long)bh * NC + c) * L * L;
+    cp16(b.pb + (tid >> 3) * PS + (tid & 7) * 4,
+         pg + (tid >> 3) * L + (tid & 7) * 4, 16);
+    if (tid < L / 4) cp16(b.sv + tid * 4, so + g0 + c * L + tid * 4, 16);
+    else if (tid < L / 2)
+      cp16(b.wv + (tid - L / 4) * 4, wo + g0 + c * L + (tid - L / 4) * 4,
+           16);
+    const int s = c * L + vs;
+    wr = wo[g0 + c * L + vs];
+#pragma unroll
+    for (int u2 = 0; u2 < 4; ++u2) {
+      const int j = j0 + vj + u2;
+      vr[u2] = (s < S && j < hd) ? v[(brow + (long long)s * H) * hd + j]
+                                 : 0.0f;
+    }
+  };
+  auto store_v = [&](int u) {
+    const Smalls b = smalls(sh, u);
+#pragma unroll
+    for (int u2 = 0; u2 < 4; ++u2) {
+      b.vt[(vj + u2) * PS + vs] = vr[u2];
+      b.vwt[(vj + u2) * PS + vs] = __fmul_rn(wr, vr[u2]);
+    }
+  };
+  auto load_q = [&](int c) {
+    load_rows<VEC>(sh.qb, q, brow + (long long)c * L * H, H, hd, st,
+                   min(L, S - c * L), xbase, xend, 0, lane, 32, LXW);
+  };
+  auto load_k = [&](int c) {
+    load_rows<VEC>(sh.kb, k, brow + (long long)c * L * H, H, hd, sk,
+                   min(L, S - c * L), xbase, xend, 0, lane, 32, LXW);
+  };
+
+  load_smalls(0, 0);
+  store_v(0);
+  cp_commit();
+  load_q(0);
+  cp_commit();
+  load_k(0);
+  cp_commit();
+
+  float cc[MT][4][4];                    // this warp's rows of C
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) cc[mi][ni][r] = 0.0f;
+  for (int c = 0; c < NC; ++c) {
+    const int u = c & 1, c0 = c * L, Lc = min(L, S - c0);
+    const bool more = c + 1 < NC;
+    cp_wait<1>();                        // smalls(c), q(c)
+    __syncthreads();
+    if (more) load_smalls(c + 1, u ^ 1);
+    cp_commit();
+    const Smalls sb = smalls(sh, u);
+
+    // Q C over this warp's rows of C: Y (L x T) as 2 x 4 m16n8 tiles,
+    // each 8-deep step's three products in a fresh accumulator d, added
+    // to acc in fp32
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.0f;
+#pragma unroll
+    for (int x = xbase; x < xend; x += 8) {
+      unsigned ab[2][4], as[2][4], bb2[4][2], bs2[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        frag_a(sh.qb + 16 * mi * st + x, st, 1, g, tq, ab[mi], as[mi]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        frag_b(sh.ct + 8 * ni * st + x, st, 1, g, tq, bb2[ni], bs2[ni]);
+      // the three products of every tile in turn, so that no mma waits
+      // on the one before it
+      float d[2][4][4] = {};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], as[mi], bb2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], ab[mi], bs2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], ab[mi], bb2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[mi][ni][r] = __fadd_rn(acc[mi][ni][r], d[mi][ni][r]);
+    }
+    // Q n (lane t) over the same rows
+    float dn = 0.0f;
+#pragma unroll
+    for (int x = xbase; x < xend; x += 4)
+      dn = dot4(ld4(sh.qb + lane * st + x), ld4(sh.nv + x), dn);
+
+    // times s_t, plus P V and rowsum(P) over this warp's steps s
+    const int s0 = wid * (L / W);
+    {
+      const float4 p = ld4(sb.pb + lane * PS + s0);
+      const float pe[4] = {p.x, p.y, p.z, p.w};
+      dn = __fmul_rn(sb.sv[lane], dn);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (s0 + e <= lane) dn = __fadd_rn(dn, pe[e]);
+    }
+    {
+      float4 pr[2][2], vc[4][2];         // P rows t, V^T rows j, read once
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          pr[mi][hf] = ld4(sb.pb + (16 * mi + g + 8 * hf) * PS + s0);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int cj = 0; cj < 2; ++cj)
+          vc[ni][cj] = ld4(sb.vt + (8 * ni + 2 * tq + cj) * PS + s0);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {   // rows g and g + 8 of the tile
+          const int t = 16 * mi + g + 8 * hf;
+          const float st_ = sb.sv[t];
+          const float pe[4] = {pr[mi][hf].x, pr[mi][hf].y, pr[mi][hf].z,
+                               pr[mi][hf].w};
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+            for (int cj = 0; cj < 2; ++cj) {
+              const float ve[4] = {vc[ni][cj].x, vc[ni][cj].y, vc[ni][cj].z,
+                                   vc[ni][cj].w};
+              float a = __fmul_rn(st_, acc[mi][ni][2 * hf + cj]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (s0 + e <= t) a = fmaf(pe[e], ve[e], a);
+              acc[mi][ni][2 * hf + cj] = a;
+            }
+          }
         }
       }
-      if (jok) vr = v[o + j];
-      ir = ipre[gbase + (long long)(t + 1) * H];
-      fr = lf[gbase + (long long)(t + 1) * H];
     }
-    __syncthreads();
+    __syncwarp();
+    if (more) load_q(c + 1);             // this warp's columns only
+    cp_commit();
+    if (more) store_v(u ^ 1);
 
-    const float fm = __fadd_rn(ft, m);
-    const float m_new = tmax(fm, it);
-    const float fg = expf(__fsub_rn(fm, m_new));
-    const float ig = expf(__fsub_rn(it, m_new));
-    m = m_new;
-
-    float acc = 0.0f;
+    if (more) {                          // this warp's rows of C and n
+      cp_wait<2>();                      // k(c)
+      __syncwarp();
+      const float a = sb.sv[Lc - 1];     // s at the chunk's end
+      // C (XW x T) = a C + K^T diag(w) V over this warp's rows x, as
+      // MT x 4 m16n8 tiles kept in registers from chunk to chunk, and
+      // written to C^T for the next chunk's Q C (C^T's rows j are the
+      // tiles' columns: every write is conflict-free at st = 4 mod 32);
+      // diag(w) V and k are 0 past Lc
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = w * RPT + r;
-      if (row < hd) {
-        const float kq = k_s[row];
-        const float kv = __fmul_rn(kq, vj);
-        C[r] = __fadd_rn(__fmul_rn(fg, C[r]), __fmul_rn(ig, kv));
-        acc = fmaf(C[r], q_s[row], acc);
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            cc[mi][ni][r] = __fmul_rn(a, cc[mi][ni][r]);
+#pragma unroll
+      for (int ks = 0; ks < L; ks += 8) {
+        unsigned ab[MT][4], as[MT][4], b2[4][2], s2[4][2];
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)   // K^T: row x, column s
+          frag_a(sh.kb + ks * sk + xbase + 16 * mi, 1, sk, g, tq, ab[mi],
+                 as[mi]);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          frag_b(sb.vwt + 8 * ni * PS + ks, PS, 1, g, tq, b2[ni], s2[ni]);
+        // per m16 tile, the step's three products in a fresh
+        // accumulator, added to the state in fp32: accumulated in the
+        // state itself, each product's truncation would be of C's size,
+        // and they would add up over every chunk whose terms are still
+        // live (hundreds where the forget gate is near 1)
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          float d[4][4] = {};
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)   // small terms first
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+              mma(d[ni], pass == 0 ? as[mi] : ab[mi],
+                  pass == 1 ? s2[ni] : b2[ni]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              cc[mi][ni][r] = __fadd_rn(cc[mi][ni][r], d[ni][r]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int x = xbase + 16 * mi + g + 8 * (r >> 1);
+            sh.ct[(8 * ni + 2 * tq + (r & 1)) * st + x] =
+                x < hd ? cc[mi][ni][r] : 0.0f;
+          }
+      {                                  // rows x0 + 32 e of n
+        constexpr int NX = XW < 32 ? 1 : XW / 32;
+        const int x0 = xbase + lane;
+        const bool ok = x0 < xend;
+        // the chunk's K^T w in a fresh sum, then added to a n: summed
+        // into n itself, each of the L terms would round at n's size,
+        // thousands of roundings carried where the forget gate is near 1
+        float nn[NX];
+#pragma unroll
+        for (int e = 0; e < NX; ++e) nn[e] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < L; s += 4) {
+          const float4 w4 = ld4(sb.wv + s);
+          const float we[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+#pragma unroll
+            for (int e = 0; e < NX; ++e)
+              if (ok) nn[e] = fmaf(we[d], sh.kb[(s + d) * sk + x0 + 32 * e],
+                                   nn[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < NX; ++e)
+          if (ok)
+            sh.nv[x0 + 32 * e] =
+                x0 + 32 * e < hd
+                    ? __fadd_rn(__fmul_rn(a, sh.nv[x0 + 32 * e]), nn[e])
+                    : 0.0f;
       }
     }
-    float nq = 0.0f;
-#pragma unroll
-    for (int l = 0; l < LPT; ++l) {
-      const int r = lane + 32 * l;
-      const int row = w * RPT + r;
-      if (r < RPT && row < hd) {
-        n[l] = __fadd_rn(__fmul_rn(fg, n[l]), __fmul_rn(ig, k_s[row]));
-        nq = fmaf(n[l], q_s[row], nq);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      nq += __shfl_xor_sync(0xffffffffu, nq, off);
-    part[w * TILE + lane] = acc;
-    if (lane == 0) nqp[w] = nq;
-    __syncthreads();
+    __syncthreads();                     // every warp is done with k(c)
 
-    if (w == 0) {
-      float num = 0.0f, den = 0.0f;
-      for (int x = 0; x < W; ++x) {
-        num += part[x * TILE + lane];
-        den += nqp[x];
+    // the warps' partial sums, through the k buffer
+    float* red = sh.kb;
+    float* dred = sh.kb + W * L * RS;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = 16 * mi + g + 8 * hf;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          *reinterpret_cast<float2*>(red + (wid * L + t) * RS + 8 * ni +
+                                     2 * tq) =
+              make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
+      }
+    dred[wid * L + lane] = dn;
+    __syncthreads();
+    {
+      const int t = tid >> 3, jj = (tid & 7) * 4;
+      float4 num = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      float den = 0.0f;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const float4 p = ld4(red + (w * L + t) * RS + jj);
+        num.x = __fadd_rn(num.x, p.x);
+        num.y = __fadd_rn(num.y, p.y);
+        num.z = __fadd_rn(num.z, p.z);
+        num.w = __fadd_rn(num.w, p.w);
+        den = __fadd_rn(den, dred[w * L + t]);
       }
       den = fabsf(den);
       den = den != den ? den : fmaxf(den, 1.0f);   // clamp_min(., 1)
-      if (jok) h[vbase + (long long)t * tstride + j] = __fdiv_rn(num, den);
+      if (t < Lc) {
+        float* out = h + (brow + (long long)(c0 + t) * H) * hd + j0 + jj;
+        const float o4[4] = {__fdiv_rn(num.x, den), __fdiv_rn(num.y, den),
+                             __fdiv_rn(num.z, den), __fdiv_rn(num.w, den)};
+        if (VEC && j0 + jj < hd) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(o4[0], o4[1], o4[2], o4[3]);
+        } else if (!VEC) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + jj + e < hd) out[e] = o4[e];
+        }
+      }
     }
+    __syncthreads();                     // the partial sums are read
+    if (more) load_k(c + 1);
+    cp_commit();
   }
+  cp_wait<0>();
 }
 
-template <int RPT>
-cudaError_t launch(dim3 grid, int warps, cudaStream_t s,
-                   const void* const* in, void* h, int S, int H, int hd) {
-  // at most 2 x 512 + 8 x 33 floats: below the 48 KB default
-  const size_t smem = sizeof(float) * (2 * hd + warps * (TILE + 1));
-  mlstm_scan_fwd<RPT><<<grid, warps * 32, smem, s>>>(
-      (const float*)in[0], (const float*)in[1], (const float*)in[2],
-      (const float*)in[3], (const float*)in[4], (float*)h, S, H, hd);
+template <bool VEC, int XW>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* i, const float* f, float* h, float* scratch,
+                   int B, int S, int H, int hd, int NC, int tiles, int st,
+                   int sk, int kbn, int smem, cudaStream_t s) {
+  const long long n = (long long)B * H * NC * L;
+  float *mo = scratch, *bo = mo + n, *so = bo + n, *wo = so + n;
+  float* P = wo + n;
+  mlstm_scan_fwd_gates<<<B * H, 32, 0, s>>>(i, f, mo, bo, so, wo, S, H, NC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_scan_fwd_intra<VEC><<<dim3(NC, H, B), IT, 0, s>>>(
+      q, k, i, mo, bo, P, S, H, hd, NC);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(mlstm_scan_fwd_inter<VEC, XW>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  mlstm_scan_fwd_inter<VEC, XW><<<dim3(tiles, H, B), NT, smem, s>>>(
+      q, k, v, P, so, wo, h, S, H, hd, NC, st, sk, kbn);
   return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_xw(int xw, const float* const* a, float* h,
+                      float* scratch, int B, int S, int H, int hd, int NC,
+                      int tiles, int st, int sk, int kbn, int smem,
+                      cudaStream_t s) {
+  switch (xw) {
+    case 16: return launch<VEC, 16>(a[0], a[1], a[2], a[3], a[4], h, scratch,
+                                    B, S, H, hd, NC, tiles, st, sk, kbn,
+                                    smem, s);
+    case 32: return launch<VEC, 32>(a[0], a[1], a[2], a[3], a[4], h, scratch,
+                                    B, S, H, hd, NC, tiles, st, sk, kbn,
+                                    smem, s);
+    default: return launch<VEC, 64>(a[0], a[1], a[2], a[3], a[4], h,
+                                    scratch, B, S, H, hd, NC, tiles, st, sk,
+                                    kbn, smem, s);
+  }
 }
 
 }  // namespace
 
-// rpt: rows of C per thread (1, 2, 4, ..., 64); warps: warps per block
-// (at most 8), warps * rpt >= hd; tiles: ceil(hd / 32). Chosen by
-// kernels/mlstm_scan/ops.py::mlstm_plan.
+// The launch plan comes from kernels/mlstm_scan/ops.py::mlstm_plan
+// (whose chunk and warps are this file's L and W): tiles = ceil(hd /
+// 32), xw (rows of C a warp: 16, 32 or 64; hd is padded to hp = 8 xw >=
+// hd), st (row stride in floats of C^T and of a chunk of q: at least hp,
+// 4 mod 8), sk (row stride of a chunk of k: at least hp, 8 mod 32), kbn
+// (floats of the k buffer, which also holds the partial sums) and smem
+// (bytes; checked against carve's layout here, so that a plan that
+// disagrees is refused and never addresses past the block's shared
+// memory). scratch: 4 B H NC 32 floats of gates, then B H NC 32 x 32 of
+// P. vec: hd % 4 == 0 and every pointer 16-byte aligned.
 extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
                                  const void* i, const void* f, void* h,
-                                 int B, int S, int H, int hd, int rpt,
-                                 int warps, int tiles, void* stream) {
+                                 void* scratch, int B, int S, int H, int hd,
+                                 int tiles, int xw, int st, int sk,
+                                 int kbn, int smem, int vec, void* stream) {
   if (B == 0 || S == 0 || H == 0 || hd == 0) return (int)cudaSuccess;
-  const dim3 grid(tiles, H, B);
+  const int hp = W * xw;
+  const long long floats = (long long)(T + L) * st + kbn + hp + 2 * SMALLS;
+  if (tiles * T < hd ||
+      (xw != 16 && xw != 32 && xw != 64) || hp < hd ||
+      st < hp || st % 8 != 4 || sk < hp || sk % 32 != 8 || kbn < L * sk ||
+      kbn < W * L * (RS + 1) || floats * 4 != smem)
+    return (int)cudaErrorInvalidValue;
+  const int NC = (S + L - 1) / L;
+  const float* a[5] = {(const float*)q, (const float*)k, (const float*)v,
+                       (const float*)i, (const float*)f};
   cudaStream_t s = (cudaStream_t)stream;
-  const void* in[5] = {q, k, v, i, f};
-  cudaError_t err;
-  switch (rpt) {
-    case 1: err = launch<1>(grid, warps, s, in, h, S, H, hd); break;
-    case 2: err = launch<2>(grid, warps, s, in, h, S, H, hd); break;
-    case 4: err = launch<4>(grid, warps, s, in, h, S, H, hd); break;
-    case 8: err = launch<8>(grid, warps, s, in, h, S, H, hd); break;
-    case 16: err = launch<16>(grid, warps, s, in, h, S, H, hd); break;
-    case 32: err = launch<32>(grid, warps, s, in, h, S, H, hd); break;
-    case 64: err = launch<64>(grid, warps, s, in, h, S, H, hd); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  return (int)(vec ? launch_xw<true>(xw, a, (float*)h, (float*)scratch, B,
+                                     S, H, hd, NC, tiles, st, sk, kbn, smem,
+                                     s)
+                   : launch_xw<false>(xw, a, (float*)h, (float*)scratch, B,
+                                      S, H, hd, NC, tiles, st, sk, kbn,
+                                      smem, s));
 }

@@ -9,27 +9,49 @@
 // src/repro/models/recurrent.py::_slstm_step inside chunked_scan (no
 // Pallas kernel: XLA runs the scan there). That sLSTM has no recurrent
 // weight matrix, so every unit is its own recurrence. Plain version:
-// repro_torch/kernels/slstm_scan/ref.py::slstm_scan_ref.
+// repro_torch/kernels/slstm_scan/ref.py::slstm_scan_ref; the chunked
+// scan below is modelled step for step, for the CPU tests, by
+// repro_torch/kernels/slstm_scan/chunked.py.
 //
 // Inputs: z, i, f, o (B, S, d) fp32 gate pre-activations (f with its
-// bias), contiguous; output h (B, S, d) fp32.
+// bias), contiguous; output h (B, S, d) fp32; scratch from the wrapper.
 //
 // Bound on an H100 SXM: bytes, 20 per (b, t, unit) (four inputs read,
 // one output written): at xlstm_1_3b's width (d = 2048), B = 2, S = 4096,
 // 336 MB, 0.100 ms at 3.35 TB/s.
 //
-// Design: one thread per (batch row, unit) walks the sequence with its
-// state in registers; neighbouring threads take neighbouring units, so
-// every access of a time step is coalesced; the next U steps' inputs are
-// loaded into registers before they are run. B * d threads (4,096 at
-// xlstm_1_3b's width with B = 2) fill only part of the card.
+// Design: a chunked scan over time. One thread per (row, unit) walking
+// all S steps (the first version) gives B d threads, 4,096 at xlstm_1_3b
+// with B = 2, each on a dependent chain of transcendentals: latency, not
+// bytes, bounded it. Given m the step is linear in (c, n), and m is a
+// max-plus scan, so time is cut into chunks of L steps and each
+// (row, chunk, unit) is a thread (B d S / L: 262,144 at L = 64):
+//  1. slstm_scan_fwd_local: each chunk from the zero state with the
+//     step's own arithmetic; writes its end (c, n, m) and G, the sum of
+//     logsigmoid(f) over the chunk.
+//  2. slstm_scan_fwd_combine, one thread per (row, unit), serial over
+//     the S / L chunks: each chunk's incoming state, by the step's own
+//     update (m = max(G + m_prev, m_loc); c = exp((G + m_prev) - m)
+//     c_prev + exp(m_loc - m) c_loc; n likewise), written over the
+//     chunk's local state.
+//  3. slstm_scan_fwd_apply: each chunk again from its incoming state
+//     (the zero state for the first), writing h.
+// With one chunk (S <= L) only pass 3 runs. Passes 1 and 3 read the
+// gates twice (z, i, f, then all four): 32 bytes an element instead of
+// 20. Neighbouring threads take neighbouring units, so every access of
+// a step is coalesced; the next U steps' inputs are loaded into
+// registers before they are run.
 // Parity: every product and sum rounds as the plain version's separate
 // torch ops (__fmul_rn / __fadd_rn / __fdiv_rn, no contraction);
 // logsigmoid, sigmoid and tanh are written as torch's CUDA kernels write
 // them (min(x, 0) - log1p(exp(-|x|)), 1 / (1 + exp(-x)), tanhf), and
-// max/clamp propagate NaN as torch's do. No fast math. The libm calls
-// need not round as torch's build does, so h is held to the plain version
-// within a tolerance, not bitwise.
+// max/clamp propagate NaN as torch's do. No fast math. The first chunk
+// runs exactly as the plain loop; later chunks start from a state that
+// differs from the loop's by rounding (from a chunk's first step on
+// n >= 1, so the clamp does not bind and a boundary m off by rounding
+// rescales c and n alike), and the libm calls need not round as
+// torch's build does, so h is held to the plain version within a
+// tolerance, not bitwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,21 +73,136 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
+struct State {
+  float c, n, m;
+};
+
+// one step of the cell; returns log-sigmoid(f) for the chunk's sum
+__device__ __forceinline__ float step(State& st, float z, float i, float f) {
+  const float lsf = log_sigmoid(f);
+  const float lm = __fadd_rn(lsf, st.m);
+  const float m_new = tmax(lm, i);
+  const float fg = expf(__fsub_rn(lm, m_new));
+  const float ig = expf(__fsub_rn(i, m_new));
+  st.c = __fadd_rn(__fmul_rn(fg, st.c), __fmul_rn(ig, tanhf(z)));
+  st.n = __fadd_rn(__fmul_rn(fg, st.n), ig);
+  st.m = m_new;
+  return lsf;
+}
+
+// thread -> (row b, chunk k, unit u) with units fastest; steps [t0, t1)
+struct Place {
+  long long base;                        // element (b, t0, u)
+  long long idx;                         // (b, k, u) in the scratch
+  int t0, t1;
+};
+
+__device__ __forceinline__ bool place(Place& p, int B, int S, int d,
+                                      int NC, int chunk) {
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= (long long)B * NC * d) return false;
+  const long long u = idx % d, bk = idx / d;
+  const int k = (int)(bk % NC);
+  const long long b = bk / NC;
+  p.idx = idx;
+  p.t0 = k * chunk;
+  p.t1 = min(p.t0 + chunk, S);
+  p.base = (b * S + p.t0) * d + u;
+  return true;
+}
+
 __global__ void __launch_bounds__(THREADS)
-slstm_scan_fwd(const float* __restrict__ z, const float* __restrict__ ip,
-               const float* __restrict__ fp, const float* __restrict__ op,
-               float* __restrict__ h, int B, int S, int d) {
+slstm_scan_fwd_local(const float* __restrict__ z, const float* __restrict__ ip,
+                     const float* __restrict__ fp, float* __restrict__ sc,
+                     int B, int S, int d, int NC, int chunk) {
+  Place p;
+  if (!place(p, B, S, d, NC, chunk)) return;
+  State st{0.0f, 0.0f, -INFINITY};
+  float G = 0.0f;
+  const int n = p.t1 - p.t0;
+  for (int t0 = 0; t0 < n; t0 += U) {
+    float zv[U], iv[U], fv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (t0 + u < n) {
+        const long long o = p.base + (long long)(t0 + u) * d;
+        zv[u] = z[o];
+        iv[u] = ip[o];
+        fv[u] = fp[o];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (t0 + u < n) G = __fadd_rn(G, step(st, zv[u], iv[u], fv[u]));
+  }
+  const long long plane = (long long)B * NC * d;
+  sc[p.idx] = st.c;
+  sc[plane + p.idx] = st.n;
+  sc[2 * plane + p.idx] = st.m;
+  sc[3 * plane + p.idx] = G;
+}
+
+// chunks' local states are read U at a time, before the serial updates
+// that need them
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_fwd_combine(float* __restrict__ sc, int B, int d, int NC) {
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)B * d) return;
-  const long long row = idx / d, u0 = idx % d;
-  const long long base = row * S * d + u0;
+  const long long b = idx / d, u = idx % d;
+  const long long plane = (long long)B * NC * d;
   float c = 0.0f, n = 0.0f, m = -INFINITY;
-  for (int t0 = 0; t0 < S; t0 += U) {
+  for (int k0 = 0; k0 < NC; k0 += U) {
+    float cl[U], nl[U], ml[U], G[U];
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      if (k0 + e < NC) {
+        const long long o = (b * NC + k0 + e) * d + u;
+        cl[e] = sc[o];
+        nl[e] = sc[plane + o];
+        ml[e] = sc[2 * plane + o];
+        G[e] = sc[3 * plane + o];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < U; ++e) {
+      if (k0 + e < NC) {
+        const long long o = (b * NC + k0 + e) * d + u;
+        sc[o] = c;                       // the chunk's incoming state
+        sc[plane + o] = n;
+        sc[2 * plane + o] = m;
+        const float gm = __fadd_rn(G[e], m);
+        const float m_new = tmax(gm, ml[e]);
+        const float a = expf(__fsub_rn(gm, m_new));
+        const float x = expf(__fsub_rn(ml[e], m_new));
+        c = __fadd_rn(__fmul_rn(a, c), __fmul_rn(x, cl[e]));
+        n = __fadd_rn(__fmul_rn(a, n), __fmul_rn(x, nl[e]));
+        m = m_new;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_fwd_apply(const float* __restrict__ z,
+                     const float* __restrict__ ip,
+                     const float* __restrict__ fp,
+                     const float* __restrict__ op,
+                     const float* __restrict__ sc, float* __restrict__ h,
+                     int B, int S, int d, int NC, int chunk) {
+  Place p;
+  if (!place(p, B, S, d, NC, chunk)) return;
+  State st{0.0f, 0.0f, -INFINITY};
+  if (p.t0 > 0) {
+    const long long plane = (long long)B * NC * d;
+    st = State{sc[p.idx], sc[plane + p.idx], sc[2 * plane + p.idx]};
+  }
+  const int n = p.t1 - p.t0;
+  for (int t0 = 0; t0 < n; t0 += U) {
     float zv[U], iv[U], fv[U], ov[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (t0 + u < S) {
-        const long long o = base + (long long)(t0 + u) * d;
+      if (t0 + u < n) {
+        const long long o = p.base + (long long)(t0 + u) * d;
         zv[u] = z[o];
         iv[u] = ip[o];
         fv[u] = fp[o];
@@ -74,17 +211,11 @@ slstm_scan_fwd(const float* __restrict__ z, const float* __restrict__ ip,
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (t0 + u < S) {
-        const float lm = __fadd_rn(log_sigmoid(fv[u]), m);
-        const float m_new = tmax(lm, iv[u]);
-        const float fg = expf(__fsub_rn(lm, m_new));
-        const float ig = expf(__fsub_rn(iv[u], m_new));
-        c = __fadd_rn(__fmul_rn(fg, c), __fmul_rn(ig, tanhf(zv[u])));
-        n = __fadd_rn(__fmul_rn(fg, n), ig);
-        m = m_new;
-        const float den = n != n ? n : fmaxf(n, 1.0f);   // clamp_min
-        h[base + (long long)(t0 + u) * d] =
-            __fdiv_rn(__fmul_rn(sigmoid(ov[u]), c), den);
+      if (t0 + u < n) {
+        step(st, zv[u], iv[u], fv[u]);
+        const float den = st.n != st.n ? st.n : fmaxf(st.n, 1.0f);
+        h[p.base + (long long)(t0 + u) * d] =
+            __fdiv_rn(__fmul_rn(sigmoid(ov[u]), st.c), den);
       }
     }
   }
@@ -92,13 +223,32 @@ slstm_scan_fwd(const float* __restrict__ z, const float* __restrict__ ip,
 
 }  // namespace
 
+// chunk: steps per chunk (kernels/slstm_scan/ops.py::CHUNK);
+// scratch: 4 B NC d floats, NC = ceil(S / chunk) (unused when NC = 1).
 extern "C" int slstm_scan_launch(const void* z, const void* i, const void* f,
-                                 const void* o, void* h, int B, int S, int d,
-                                 void* stream) {
+                                 const void* o, void* h, void* scratch, int B,
+                                 int S, int d, int chunk, void* stream) {
   if (B == 0 || S == 0 || d == 0) return (int)cudaSuccess;
-  const int blocks = (int)(((long long)B * d + THREADS - 1) / THREADS);
-  slstm_scan_fwd<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)z, (const float*)i, (const float*)f, (const float*)o,
-      (float*)h, B, S, d);
+  if (chunk < 1) return (int)cudaErrorInvalidValue;
+  const int NC = (S + chunk - 1) / chunk;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *zp = (const float*)z, *ip = (const float*)i,
+              *fp = (const float*)f, *opp = (const float*)o;
+  float* sc = (float*)scratch;
+  const long long work = (long long)B * NC * d;
+  const int blocks = (int)((work + THREADS - 1) / THREADS);
+  if (NC > 1) {
+    slstm_scan_fwd_local<<<blocks, THREADS, 0, s>>>(zp, ip, fp, sc, B, S, d,
+                                                    NC, chunk);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int cb = (int)(((long long)B * d + THREADS - 1) / THREADS);
+    slstm_scan_fwd_combine<<<cb, THREADS, 0, s>>>(sc, B, d, NC);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  slstm_scan_fwd_apply<<<blocks, THREADS, 0, s>>>(zp, ip, fp, opp, sc,
+                                                  (float*)h, B, S, d, NC,
+                                                  chunk);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,13 @@ port's ``mlstm_block`` did before the kernel existed. The CPU tests use
 it as the kernel's stand-in and ``chip_smoke.py`` holds the kernel
 against it on the card, within a stated tolerance (the kernel sums
 ``C q`` and ``n q`` in another order).
+
+:func:`mlstm_scan_exact` is the same recurrence in float64 given the
+stabilizer m of the fp32 loop (which is part of the op: where the clamp
+binds, h scales with e^{-m}). Where the forget gate is near 1 the fp32
+loop's own rounding, carried through thousands of steps of state, is of
+the order of that tolerance (its f + m - m' rounds to 0), so kernels are
+held to this one there.
 """
 from __future__ import annotations
 
@@ -51,4 +58,34 @@ def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in range(S):
         carry, h = mlstm_step(carry, tuple(x[t] for x in xs))
         hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def mlstm_scan_exact(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """``h`` (B, S, H, hd) float64 of :func:`mlstm_scan_ref`'s recurrence
+    from fp32 inputs: m by the loop's own fp32 recurrence, everything
+    else in float64."""
+    B, S, H, hd = q.shape
+    m = torch.full((B, H), -torch.inf, dtype=i.dtype, device=i.device)
+    ms = []
+    for t in range(S):
+        m = torch.maximum(f[:, t] + m, i[:, t])
+        ms.append(m.double())
+    q, k, v, i, f = (x.double() for x in (q, k, v, i, f))
+    C = q.new_zeros((B, H, hd, hd))
+    n = q.new_zeros((B, H, hd))
+    m_prev = torch.full((B, H), -torch.inf, dtype=q.dtype, device=q.device)
+    hs = []
+    for t in range(S):
+        fg = torch.exp(f[:, t] + m_prev - ms[t])
+        ig = torch.exp(i[:, t] - ms[t])
+        C = fg[..., None, None] * C + ig[..., None, None] * (
+            k[:, t, :, :, None] * v[:, t, :, None, :])
+        n = fg[..., None] * n + ig[..., None] * k[:, t]
+        h_num = torch.einsum("bhij,bhi->bhj", C, q[:, t])
+        h_den = torch.clamp_min(torch.abs(torch.einsum(
+            "bhi,bhi->bh", n, q[:, t])), 1.0)
+        hs.append(h_num / h_den[..., None])
+        m_prev = ms[t]
     return torch.stack(hs, dim=1)

@@ -6,6 +6,10 @@ which stands in for the JAX package's ``lax.scan`` of ``_slstm_step``
 (``repro/models/recurrent.py``). CUDA tensors launch the kernel, CPU
 tensors run the plain version (:mod:`.ref`), and a CUDA tensor never
 falls back. Its launch count is ``slstm_scan.launches`` (one per call).
+The kernel is a chunked scan over time in chunks of ``CHUNK`` steps (a
+local pass per chunk, a serial combine over the chunks, a rerun of each
+chunk from its incoming state); :mod:`.chunked` models it in PyTorch
+for the CPU tests.
 
 It is a ``torch.library`` custom op (``repro_torch::slstm_scan``) with a
 fake (meta) version, a DTensor rule (every operand sharded alike on the
@@ -27,7 +31,9 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import build
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+CHUNK = 64                               # steps per chunk of the kernel
+
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _check(z, i, f, o) -> None:
@@ -55,10 +61,13 @@ def _slstm_scan(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
         raise ValueError(f"slstm_scan runs on cuda or cpu, not {z.device}")
     h = torch.empty_like(z)
     B, S, d = z.shape
+    n_chunks = -(-S // CHUNK)            # one: only the rerun runs
+    scratch = torch.empty(4 * B * n_chunks * d if n_chunks > 1 else 0,
+                          dtype=torch.float32, device=z.device)
     fn = build.entry("slstm_scan", "slstm_scan_launch", _ARGS)
     with torch.cuda.device(z.device):
         status = fn(z.data_ptr(), i.data_ptr(), f.data_ptr(), o.data_ptr(),
-                    h.data_ptr(), B, S, d,
+                    h.data_ptr(), scratch.data_ptr(), B, S, d, CHUNK,
                     torch.cuda.current_stream(z.device).cuda_stream)
     build.check(status, "slstm_scan")
     slstm_scan.launches += 1

@@ -1,0 +1,176 @@
+"""The chunked algorithms of the ``mlstm_scan`` and ``slstm_scan``
+kernels, modelled step for step in PyTorch (``repro_torch/kernels/
+{mlstm,slstm}_scan/chunked.py``), against the plain loops that define
+the ops (``ref.py``), on the CPU. No card can check the decomposition
+here; these tests do, at several chunk lengths and at lengths shorter
+than a chunk, equal to one, one step either side of one, not a multiple
+of one, and long.
+
+* mLSTM: the stabilizer m of the gates pass equals the loop's bit for
+  bit (the clamp max(|n . q|, 1) makes h depend on m itself); h is
+  within SCAN_RTOL of the loop's largest |h|, also where input-gate
+  spikes make the clamp bind.
+* sLSTM: the first chunk equals the loop bit for bit (it starts from the
+  same zero state with the same step); the rest within SCAN_RTOL.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.mlstm_scan.chunked import (  # noqa: E402
+    mlstm_chunk_gates, mlstm_chunked)
+from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
+    mlstm_scan_exact, mlstm_step)
+from repro_torch.kernels.slstm_scan.chunked import slstm_chunked  # noqa: E402
+from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref  # noqa: E402
+
+CHUNKS = [16, 32, 64]
+LENGTHS = ["1", "L-1", "L", "L+1", "200", "1024"]
+# the tolerance that holds the kernels to the loops on the card
+# (tests/test_torch_gpu.py, chip_smoke.py): relative to the output's
+# largest |entry|; the chunked sums run in another order than the loop's
+SCAN_RTOL = 4e-6
+
+
+def _length(kind: str, chunk: int) -> int:
+    return {"1": 1, "L-1": chunk - 1, "L": chunk, "L+1": chunk + 1,
+            "200": 200, "1024": 1024}[kind]
+
+
+def _rand(rng, *shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+
+def _mlstm_inputs(rng, S, spikes=0.0, forget_bias=3.0):
+    """The smoke width (B 2, H 4, hd 16), gates as ``mlstm_block`` draws
+    them: k scaled by 1/sqrt(hd), f = logsigmoid(randn + ``forget_bias``)
+    (3 in the blocks); ``spikes`` adds that much to the input gate at 3%
+    of the steps."""
+    B, H, hd = 2, 4, 16
+    q, k, v = (_rand(rng, B, S, H, hd) for _ in range(3))
+    i = _rand(rng, B, S, H)
+    if spikes:
+        i = i + spikes * torch.from_numpy(
+            (rng.random((B, S, H)) < 0.03).astype(np.float32))
+    f = torch.nn.functional.logsigmoid(_rand(rng, B, S, H) + forget_bias)
+    return q, k / hd ** 0.5, v, i, f
+
+
+def _loop(q, k, v, i, f):
+    """h and m of ``ref.mlstm_step`` over the sequence."""
+    B, S, H, hd = q.shape
+    carry = (torch.zeros((B, H, hd, hd)), torch.zeros((B, H, hd)),
+             torch.full((B, H), -torch.inf))
+    hs, ms = [], []
+    for t in range(S):
+        carry, h = mlstm_step(carry, tuple(x[:, t] for x in (q, k, v, i, f)))
+        hs.append(h)
+        ms.append(carry[2])
+    return torch.stack(hs, dim=1), torch.stack(ms, dim=1)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("kind", LENGTHS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_mlstm_chunked_matches_the_loop(chunk, kind):
+    S = _length(kind, chunk)
+    args = _mlstm_inputs(np.random.default_rng(S * 7 + chunk), S)
+    h_ref, m_ref = _loop(*args)
+    m = mlstm_chunk_gates(args[3], args[4], chunk)[0]
+    assert torch.equal(m, m_ref)
+    h, _ = mlstm_chunked(*args, chunk)
+    assert h.shape == h_ref.shape
+    assert _rel(h, h_ref) <= SCAN_RTOL
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_mlstm_chunked_where_the_clamp_binds(chunk):
+    """Input-gate spikes of +6 at 3% of the steps: after a spike m jumps
+    and the older terms of n fade, so |n . q| < 1 at most steps, where
+    h = C^T q is unnormalized and its scale e^{-m} depends on m."""
+    args = _mlstm_inputs(np.random.default_rng(chunk), 1024, spikes=6.0)
+    h_ref, m_ref = _loop(*args)
+    assert torch.equal(mlstm_chunk_gates(args[3], args[4], chunk)[0], m_ref)
+    h, den = mlstm_chunked(*args, chunk)
+    assert float((den.abs() < 1).float().mean()) > 0.5
+    assert _rel(h, h_ref) <= SCAN_RTOL
+
+
+# forget-gate biases of long memory (+6: the top of the xLSTM paper's
+# forget-gate init range; +10: the gate within ~5e-5 of 1): the state at
+# a chunk's boundary then carries most of h, over many chunks, at the
+# kernels' chunk lengths
+LONG_MEMORY_BIASES = [6.0, 10.0]
+
+
+@pytest.mark.parametrize("forget_bias", LONG_MEMORY_BIASES)
+def test_mlstm_chunked_with_long_memory(forget_bias):
+    """Held to ``ref.mlstm_scan_exact`` (float64, the fp32 loop's m):
+    the fp32 loop's f + m - m' rounds to 0 once |f| is below m's ulp, so
+    there the loop itself drifts by about SCAN_RTOL over 1,024 steps."""
+    args = _mlstm_inputs(np.random.default_rng(32 + int(forget_bias)),
+                         1024, forget_bias=forget_bias)
+    m_ref = _loop(*args)[1]
+    assert torch.equal(mlstm_chunk_gates(args[3], args[4], 32)[0], m_ref)
+    h, _ = mlstm_chunked(*args, 32)
+    assert _rel(h.double(), mlstm_scan_exact(*args)) <= SCAN_RTOL
+
+
+@pytest.mark.parametrize("forget_bias", LONG_MEMORY_BIASES)
+def test_slstm_chunked_with_long_memory(forget_bias):
+    rng = np.random.default_rng(64 + int(forget_bias))
+    z, i, f, o = (_rand(rng, 2, 512, 64) for _ in range(4))
+    f = f + forget_bias
+    h_ref = slstm_scan_ref(z, i, f, o)
+    assert _rel(slstm_chunked(z, i, f, o, 64), h_ref) <= SCAN_RTOL
+
+
+def test_mlstm_exact_reference_matches_the_loop_at_short_memory():
+    """``mlstm_scan_exact`` is the loop's recurrence: at the blocks' gates
+    it agrees with the fp32 loop within its rounding."""
+    args = _mlstm_inputs(np.random.default_rng(5), 200)
+    h = mlstm_scan_exact(*args)
+    assert h.dtype == torch.float64
+    assert _rel(_loop(*args)[0].double(), h) <= SCAN_RTOL
+
+
+def test_mlstm_chunk_gates_decay_and_weights():
+    """s_t is the incoming state's decay to step t and w_s input s's
+    weight at the chunk's end, both from sums of f within the chunk:
+    against a float64 recomputation, chunk by chunk (the first chunk's
+    s is 0: no incoming state)."""
+    chunk, S = 32, 96
+    _, _, _, i, f = _mlstm_inputs(np.random.default_rng(3), S)
+    m, b, s, w = mlstm_chunk_gates(i, f, chunk)
+    i64, f64, m64 = i.double(), f.double(), m.double()
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        cum = torch.cumsum(f64[:, sl], dim=1)
+        assert torch.allclose(b[:, sl].double(), cum, rtol=0, atol=1e-5)
+        m_prev = m64[:, c0 - 1] if c0 else torch.full_like(m64[:, 0],
+                                                           -torch.inf)
+        s64 = torch.exp(cum + m_prev[:, None] - m64[:, sl])
+        w64 = torch.exp(i64[:, sl] + cum[:, -1:] - cum - m64[:, c0 + chunk
+                                                            - 1][:, None])
+        assert torch.allclose(s[:, sl].double(), s64, rtol=1e-5, atol=0)
+        assert torch.allclose(w[:, sl].double(), w64, rtol=1e-5, atol=0)
+    assert torch.equal(s[:, :chunk], torch.zeros_like(s[:, :chunk]))
+
+
+@pytest.mark.parametrize("kind", LENGTHS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_slstm_chunked_matches_the_loop(chunk, kind):
+    S = _length(kind, chunk)
+    rng = np.random.default_rng(S * 5 + chunk)
+    z, i, f, o = (_rand(rng, 2, S, 64) for _ in range(4))
+    f = f + 3.0                                   # the forget-open bias
+    h_ref = slstm_scan_ref(z, i, f, o)
+    h = slstm_chunked(z, i, f, o, chunk)
+    assert h.shape == h_ref.shape
+    first = min(chunk, S)
+    assert torch.equal(h[:, :first], h_ref[:, :first])
+    assert _rel(h, h_ref) <= SCAN_RTOL

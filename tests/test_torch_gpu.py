@@ -508,9 +508,17 @@ SCAN_RTOL = 4e-6
 # prefetch, recurrentgemma_2b's and xlstm_1_3b's widths
 ELEMENTWISE_SCAN_SHAPES = [(2, 1, 64), (3, 37, 64), (2, 300, 2560),
                            (2, 129, 2048)]
-# (B, S, H, hd): the smoke head, ragged heads, xlstm_1_3b's full head
+# the sLSTM's chunked scan (64-step chunks) besides: one chunk exactly,
+# one step past it, S not a multiple of it, many chunks at full width
+SLSTM_SHAPES = ELEMENTWISE_SCAN_SHAPES + [(2, 64, 64), (1, 65, 100),
+                                          (2, 1000, 33), (2, 4096, 2048)]
+# (B, S, H, hd): the smoke head, ragged heads, xlstm_1_3b's full head;
+# against the mLSTM's 32-step chunks: S < 32, S = 32, S not a multiple
+# of 32; hd of 16, 48 and 512, hd not a multiple of 4 or 8
 MLSTM_SHAPES = [(2, 1, 4, 16), (2, 37, 4, 16), (1, 20, 2, 100),
-                (2, 5, 1, 33), (2, 200, 4, 512)]
+                (2, 5, 1, 33), (2, 200, 4, 512), (2, 32, 2, 16),
+                (2, 70, 3, 48), (1, 33, 1, 512), (1, 100, 1, 31),
+                (2, 64, 2, 1), (1, 77, 2, 200)]
 
 
 def _scan_ops():
@@ -547,7 +555,7 @@ def test_cuda_rglru_scan_forward_and_backward_bitwise(B, S, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,d", ELEMENTWISE_SCAN_SHAPES)
+@pytest.mark.parametrize("B,S,d", SLSTM_SHAPES)
 def test_cuda_slstm_scan_matches_plain_version(B, S, d):
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
     _, _, sops = _scan_ops()
@@ -563,24 +571,98 @@ def test_cuda_slstm_scan_matches_plain_version(B, S, d):
     assert _rel(h, slstm_scan_ref(z, i, f, o)) <= SCAN_RTOL
 
 
+def _mlstm_case(B, S, H, hd, dev, spikes=0.0, offset=0, forget_bias=3.0):
+    """q, k, v, i, f as ``mlstm_block`` draws them, f = logsigmoid(randn
+    + ``forget_bias``); ``spikes`` added to the input gate at 3% of the
+    steps; q, k, v at ``offset`` floats into their buffers (offset 1: not
+    16-byte aligned)."""
+    g = torch.Generator(device=dev).manual_seed(S * 13 + hd)
+
+    def rnd(*shape):
+        n = int(np.prod(shape))
+        buf = torch.randn(n + offset, generator=g, device=dev)
+        return buf[offset:].view(shape)
+    q, k, v = (rnd(B, S, H, hd) for _ in range(3))
+    k = k / hd ** 0.5
+    i = torch.randn((B, S, H), generator=g, device=dev)
+    if spikes:
+        i = i + spikes * (torch.rand((B, S, H), generator=g, device=dev)
+                          < 0.03)
+    f = torch.nn.functional.logsigmoid(
+        torch.randn((B, S, H), generator=g, device=dev) + forget_bias)
+    return q, k, v, i, f
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,hd", MLSTM_SHAPES)
 def test_cuda_mlstm_scan_matches_plain_version(B, S, H, hd):
     from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
     _, mops, _ = _scan_ops()
-    dev = _card()
-    g = torch.Generator(device=dev).manual_seed(S * 13 + hd)
-    q, k, v = (torch.randn((B, S, H, hd), generator=g, device=dev)
-               for _ in range(3))
-    k = k / hd ** 0.5
-    i = torch.randn((B, S, H), generator=g, device=dev)
-    f = torch.nn.functional.logsigmoid(
-        torch.randn((B, S, H), generator=g, device=dev) + 3.0)
+    args = _mlstm_case(B, S, H, hd, _card())
     n0 = mops.mlstm_scan.launches
-    h = mops.mlstm_scan(q, k, v, i, f)
+    h = mops.mlstm_scan(*args)
     torch.cuda.synchronize()
     assert mops.mlstm_scan.launches == n0 + 1
-    assert _rel(h, mlstm_scan_ref(q, k, v, i, f)) <= SCAN_RTOL
+    assert _rel(h, mlstm_scan_ref(*args)) <= SCAN_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spikes,offset", [(6.0, 0), (0.0, 1)],
+                         ids=["clamp-binds", "unaligned"])
+def test_cuda_mlstm_scan_clamp_and_unaligned_operands(spikes, offset):
+    """Input-gate spikes make |n . q| < 1 at most steps, where h depends
+    on the stabilizer m itself; operands 4 bytes off 16-byte alignment
+    take the kernel's scalar loads. Both at xlstm_1_3b's head, over many
+    chunks."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+    _, mops, _ = _scan_ops()
+    args = _mlstm_case(2, 1024, 4, 512, _card(), spikes, offset)
+    h = mops.mlstm_scan(*args)
+    torch.cuda.synchronize()
+    assert _rel(h, mlstm_scan_ref(*args)) <= SCAN_RTOL
+
+
+# forget-gate biases of long memory: +6 is the top of the xLSTM paper's
+# forget-gate init range (a decay of ~0.9975 a step), +10 keeps the gate
+# within ~5e-5 of 1, so that the state sums hundreds to thousands of
+# chunks whose terms are still live. There the plain fp32 mLSTM loop's
+# own rounding, carried through thousands of steps of state, is of the
+# order of SCAN_RTOL, so the mLSTM kernel is held to ref.mlstm_scan_exact
+# (float64, the fp32 loop's stabilizer)
+LONG_MEMORY_BIASES = [6.0, 10.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forget_bias", LONG_MEMORY_BIASES)
+def test_cuda_mlstm_scan_long_memory(forget_bias):
+    """Forget gates near 1 at xlstm_1_3b's head and the main path's
+    S = 4096: the state carries every chunk's products, so a rounding
+    bias of the C update that older terms' decay would hide adds up."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_exact
+    _, mops, _ = _scan_ops()
+    args = _mlstm_case(2, 4096, 4, 512, _card(), forget_bias=forget_bias)
+    h = mops.mlstm_scan(*args)
+    torch.cuda.synchronize()
+    rel = _rel(h.double(), mlstm_scan_exact(*args))
+    assert rel <= SCAN_RTOL, f"{rel} of the largest |h|"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("forget_bias", LONG_MEMORY_BIASES)
+def test_cuda_slstm_scan_long_memory(forget_bias):
+    """The sLSTM's chunked scan where the forget gate is near 1: the
+    boundary states the combine pass hands on carry most of c and n."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    _, _, sops = _scan_ops()
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(int(forget_bias))
+    z, i, f, o = (torch.randn((2, 4096, 2048), generator=g, device=dev)
+                  for _ in range(4))
+    f = f + forget_bias
+    h = sops.slstm_scan(z, i, f, o)
+    torch.cuda.synchronize()
+    rel = _rel(h, slstm_scan_ref(z, i, f, o))
+    assert rel <= SCAN_RTOL, f"{rel} of the largest |h|"
 
 
 @pytest.mark.gpu

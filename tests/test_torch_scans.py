@@ -12,7 +12,9 @@ version; the CUDA kernels are held to these on the card
   gradients of ``a``, ``b`` and the block's params within 1e-4 (of each
   leaf's largest entry) of ``jax.grad``.
 * ``torch.library.opcheck`` passes on every op; ``mlstm_plan`` covers
-  every head width it takes.
+  every head width it takes, within the card's shared memory, with
+  strides whose tensor-core fragment reads are free of bank conflicts.
+  (The chunked algorithms themselves: tests/test_torch_chunked_scans.py.)
 * Under ``FakeTensorMode`` a reduced recurrentgemma_2b and xlstm_1_3b
   ``forward_hidden`` dispatch as many ops at S=4096 as at S=64: one scan
   op per block.
@@ -158,22 +160,59 @@ def test_ops_raise_on_what_the_kernels_do_not_take():
         mops.mlstm_scan(q, q, q, q, q)
 
 
-@pytest.mark.parametrize("hd", [1, 16, 31, 33, 64, 100, 256, 511, 512])
+PLAN_WIDTHS = [1, 8, 9, 16, 31, 33, 48, 64, 100, 256, 511, 512]
+
+
+@pytest.mark.parametrize("hd", PLAN_WIDTHS)
 def test_mlstm_plan_covers_the_head(hd):
     plan = mops.mlstm_plan(hd)
-    assert plan.rpt in (1, 2, 4, 8, 16, 32, 64)
-    assert plan.warps <= mops.MAX_WARPS
-    assert plan.warps * plan.rpt >= hd > (plan.warps - 1) * plan.rpt
+    assert (plan.chunk, plan.warps) == (mops.CHUNK, mops.WARPS) == (32, 8)
+    # the fewest rows a warp, a power of two from 16 to 64, covering hd
+    assert plan.xw in (16, 32, 64)
+    hp = plan.xw * plan.warps
+    assert hp >= hd and (plan.xw == 16 or hp // 2 < hd)
     assert plan.tiles * mops.TILE >= hd > (plan.tiles - 1) * mops.TILE
-    # the fewest rows a thread: half as many would need more warps
-    assert plan.rpt == 1 or -(-hd // (plan.rpt // 2)) > mops.MAX_WARPS
+    # strides hold a padded row; the k buffer also holds the partial sums
+    assert plan.stride >= hp and plan.kstride >= hp
+    assert plan.kbuf >= plan.chunk * plan.kstride
+    assert plan.kbuf >= plan.warps * plan.chunk * (mops.RED_STRIDE + 1)
+    smalls = ((plan.chunk + 2 * mops.TILE) * mops.P_STRIDE
+              + 2 * plan.chunk)
+    assert plan.smem == 4 * ((mops.TILE + plan.chunk) * plan.stride
+                             + plan.kbuf + hp + 2 * smalls)
+    assert plan.smem <= mops.MAX_SMEM
+
+
+@pytest.mark.parametrize("hd", PLAN_WIDTHS)
+def test_mlstm_plan_fragments_read_without_bank_conflicts(hd):
+    """The banks (4-byte words mod 32) that the 32 lanes of a warp read
+    for one tensor-core fragment register are all different: lane (g =
+    lane // 4, q = lane % 4) reads row g, column q of q and of C^T
+    (stride ``stride``) and row q, column g of k (stride ``kstride``),
+    and 16-byte rows of q, C^T and k stay aligned for cp.async."""
+    plan = mops.mlstm_plan(hd)
+    lanes = [(lane // 4, lane % 4) for lane in range(32)]
+    for stride, addr in ((plan.stride, lambda g, q, st: g * st + q),
+                         (plan.kstride, lambda g, q, st: q * st + g),
+                         (mops.P_STRIDE, lambda g, q, st: g * st + q)):
+        banks = {addr(g, q, stride) % 32 for g, q in lanes}
+        assert len(banks) == 32, stride
+        assert stride % 4 == 0
 
 
 def test_mlstm_plan_at_xlstm_width_and_beyond():
-    assert mops.mlstm_plan(512) == (64, 8, 16)
+    assert mops.mlstm_plan(512) == (32, 16, 8, 64, 516, 520, 16640, 228864)
     for hd in (0, 513):
         with pytest.raises(ValueError, match="hd"):
             mops.mlstm_plan(hd)
+
+
+def test_mlstm_scratch_sizes():
+    """The mLSTM scratch holds m, b, s, w per step and P per chunk, each
+    padded to whole chunks."""
+    for S, chunks in ((4096, 128), (33, 2), (1, 1)):
+        n = 2 * 4 * chunks * 32                   # B H chunks L
+        assert mops.scratch_floats(2, S, 4) == 4 * n + n * 32
 
 
 # -- the blocks against the JAX package ---------------------------------------
