@@ -121,10 +121,11 @@ H100; the kernels are built for sm_90a). Phases:
      the first loss; a 2-layer fp32 model at full width, loss and
      gradients on the card against the CPU; ``python -m
      repro_torch.launch.train --device cuda`` as a subprocess. Of the
-     kernels training reaches only the RG-LRU's two, in the
-     recurrentgemma smoke gradient: ``rglru_scan`` and ``rglru_scan_bwd``
-     launch once per RG-LRU block, every other count stays 0 (xlstm
-     trains through ``chunked_scan``);
+     kernels training reaches only the scans, in the recurrentgemma and
+     xlstm smoke gradients: each recurrent block's forward scan launches
+     twice if the smoke config rematerializes (once if not) and its
+     backward once (``rglru_scan``/``_bwd``, ``mlstm_scan``/``_bwd``,
+     ``slstm_scan``/``_bwd``), every other count stays 0;
   12. sharding (slice E) with every launch count set to 0 just before
      it: a world of one on ``nccl`` and the (1, 1) test mesh; full-width
      internlm2_1_8b (``scan_layers=False``) decodes 8 steps through
@@ -145,33 +146,43 @@ H100; the kernels are built for sm_90a). Phases:
      ``examples/torch/*.py --device cuda``, each exiting 0, the host-side
      ones (quickstart, placement_sweep, fleet_demo, serve_dynamic)
      printing what their ``--device cpu`` runs print;
-  13. the recurrent scans (slice F): ``rglru_scan`` and ``rglru_scan_bwd``
-     bitwise, ``mlstm_scan`` and ``slstm_scan`` within 4e-6 of the
-     largest |h|, against their plain versions on the card at the smoke
-     and full widths (d 2560, d 2048, 4 heads of 512) at S = 1, 200 and
-     4096; each timed at B=2, S=4096 by CUDA events and torch.profiler
-     beside its bound and its plain version. Each path with every launch
-     count set to 0 just before and read just after:
+  13. the recurrent scans (slices F and G): ``rglru_scan`` and
+     ``rglru_scan_bwd`` bitwise, ``mlstm_scan`` and ``slstm_scan`` within
+     4e-6 of the largest |h|, ``mlstm_scan_bwd`` and ``slstm_scan_bwd``
+     within 2e-5 of each gradient's largest entry, against their plain
+     versions on the card at the smoke and full widths (d 2560, d 2048,
+     4 heads of 512) at S = 1, 200 and 4096, the mLSTM's two also where
+     its clamp binds; at forget biases +6 and +10 the mLSTM's forward
+     and backward against float64 given the fp32 loop's m
+     (``ref.mlstm_scan_exact``, ``ref.mlstm_scan_bwd_exact``), the
+     backward no farther from it than the larger of 2e-5 and the fp32
+     plain backward, and the forward at +10 over 8 seeds of the draw;
+     each kernel timed at B=2, S=4096 by CUDA events and torch.profiler
+     beside its bound and its plain version. Each path with every
+     launch count set to 0 just before and read just after:
      recurrentgemma_2b at full width (26 layers, bf16, unscanned),
      ``lm.forward`` at B=2, S=4096 without autograd, one ``rglru_scan``
      per RG-LRU block, bitwise to the same forward through the plain
-     loops; 2 Trainer steps of it at full depth (``dryrun_config``,
-     AdamW) at B=2, S=4096 in a child process (``--recurrent-train``;
-     the step peaks near the card's 80 GB), each step launching the
-     forward scan twice per block (remat) and the backward once; a
-     2-layer fp32 full-width loss and gradient against the CPU;
-     xlstm_1_3b at full width (48 layers, bf16) ``lm.forward`` at B=2,
-     S=4096 without autograd, one ``mlstm_scan`` or ``slstm_scan`` per
-     block, and its whole stack in fp32 at S=512 against the plain loops
-     within 1e-3 of the largest logit. Then ``python -m
-     repro_torch.launch.dryrun --device cuda`` for recurrentgemma_2b's
-     train_4k (cut to 2 of 26 blocks) and prefill_32k and xlstm_1_3b's
-     prefill_32k (whole) on both fake meshes, each ``ok`` with its
-     argument bytes equal to the rules' local shards;
+     loops; 2 Trainer steps each of recurrentgemma_2b and xlstm_1_3b at
+     full width and depth (``dryrun_config``, AdamW) at B=2, S=4096 in
+     a child process of its own (``--recurrent-train``,
+     ``--xlstm-train``; recurrentgemma's step peaks near the card's 80
+     GB), each step launching every recurrent block's forward scan
+     twice (remat) and its backward once, with losses, step times,
+     tokens/s, peak memory and a profiled step's scan device times; a
+     2-layer fp32 full-width loss and gradient of each against the CPU
+     (xlstm's one mLSTM and one sLSTM block); xlstm_1_3b at full width
+     (48 layers, bf16) ``lm.forward`` at B=2, S=4096 without autograd,
+     one ``mlstm_scan`` or ``slstm_scan`` per block, and its whole stack
+     in fp32 at S=512 against the plain loops within 1e-3 of the largest
+     logit. Then ``python -m repro_torch.launch.dryrun --device cuda``
+     for the train_4k (cut to 2 blocks) and prefill_32k (whole) cells of
+     recurrentgemma_2b and xlstm_1_3b on both fake meshes, each ``ok``
+     with its argument bytes equal to the rules' local shards;
   14. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
-     in total and per driven path, ``train``, ``sharded`` and slice F's
-     among them; ``pim_mac``
+     in total and per driven path, ``train``, ``sharded`` and phase 13's
+     among them, for all nine kernels; ``pim_mac``
      also its comparison with the library call at M=32 under
      ``at_library_shape`` and its recurrentgemma row under
      ``at_recurrentgemma_shape``) and, last,
@@ -1592,14 +1603,15 @@ def _wrappers() -> dict:
     """Every kernel's wrapper, which keeps its launch count."""
     from repro_torch.kernels.knapsack_dp.ops import dp_stages
     from repro_torch.kernels.lut_pipeline.ops import minplus_combine
-    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_bwd
     from repro_torch.kernels.pim_mac.ops import pim_matmul
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
-    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_bwd
     return {"dp_stages": dp_stages, "minplus_combine": minplus_combine,
             "pim_mac": pim_matmul, "rglru_scan": rglru_scan,
             "rglru_scan_bwd": rglru_scan_bwd, "mlstm_scan": mlstm_scan,
-            "slstm_scan": slstm_scan}
+            "slstm_scan": slstm_scan, "mlstm_scan_bwd": mlstm_scan_bwd,
+            "slstm_scan_bwd": slstm_scan_bwd}
 
 
 def kernel_counts() -> dict:
@@ -2257,24 +2269,37 @@ def train_cli() -> None:
     require(res.returncode == 0, f"launch.train failed: {res.stderr}")
 
 
-def smoke_rglru_launches() -> dict:
-    """The RG-LRU launches of one loss + gradient of the recurrentgemma
-    smoke model: each RG-LRU block's forward (twice under remat) and its
-    backward."""
+def scan_launches(cfg, steps: int = 1) -> dict:
+    """The scan launches of ``steps`` losses + gradients of ``cfg``: each
+    recurrent block's forward (twice under remat: the recompute) and its
+    backward, once a step."""
+    kinds = cfg.pattern_for_depth()
+    out = {}
+    for kind in ("rglru", "mlstm", "slstm"):
+        n = kinds.count(kind)
+        if n:
+            out[f"{kind}_scan"] = steps * n * (2 if cfg.remat else 1)
+            out[f"{kind}_scan_bwd"] = steps * n
+    return out
+
+
+def smoke_scan_launches() -> dict:
+    """The scan launches of phase 11: one loss + gradient of the
+    recurrentgemma and the xlstm smoke models."""
     from repro_torch.configs import get_smoke_config
-    cfg = get_smoke_config("recurrentgemma_2b")
-    n = cfg.pattern_for_depth().count("rglru")
-    return {"rglru_scan": n * (2 if cfg.remat else 1), "rglru_scan_bwd": n}
+    out = scan_launches(get_smoke_config("recurrentgemma_2b"))
+    out.update(scan_launches(get_smoke_config("xlstm_1_3b")))
+    return out
 
 
 def phase_training(card: str, out: dict) -> None:
     """Training (slice D) with every kernel's launch count set to 0: the
     smoke families, the Trainer and a resume against the CPU, full-width
     internlm2_1_8b steps, a full-width gradient against the CPU and the
-    CLI. Of the port's kernels training reaches only the RG-LRU's two,
-    in the recurrentgemma smoke gradient (xlstm trains through
-    ``chunked_scan``): exactly its blocks' launches, every other count
-    still 0 after."""
+    CLI. Of the port's kernels training reaches only the scans, in the
+    recurrentgemma and xlstm smoke gradients: exactly their blocks'
+    launches (``smoke_scan_launches``), every other count still 0
+    after."""
     zero_kernel_counts()
     timed("training/smoke", train_smoke)
     timed("training/full width", train_full_width, card)
@@ -2284,7 +2309,7 @@ def phase_training(card: str, out: dict) -> None:
     print(f"[train] kernel launches over the training phase: "
           f"{out['train_launches']}")
     expect = dict.fromkeys(out["train_launches"], 0)
-    expect.update(smoke_rglru_launches())
+    expect.update(smoke_scan_launches())
     require(out["train_launches"] == expect,
             f"training launches {out['train_launches']}, expected {expect}")
 
@@ -2596,6 +2621,12 @@ def phase_sharded(card: str, out: dict) -> None:
 # few fp32 ulps, each carried through the state). The RG-LRU's two
 # kernels are held bitwise.
 SCAN_RTOL = 4e-6
+# the mLSTM and sLSTM backward kernels against their plain versions,
+# relative to each gradient's largest |entry| (tests/test_torch_gpu.py's
+# BWD_RTOL): the chunkwise products, the gates' reverse sums and the
+# chunked carries run in another order than the loops', and the gate
+# gradients are differences of such sums
+BWD_RTOL = 2e-5
 # the main path's batch and length: recurrentgemma_2b and xlstm_1_3b
 # forwards, recurrentgemma_2b's training steps
 SCAN_B, SCAN_S = 2, 4096
@@ -2618,6 +2649,11 @@ MLSTM_CLAMP_SPIKES = 6.0
 # fp32 loop's stabilizer), and the fp32 loop's distance from that is
 # printed beside; the sLSTM kernel to its plain loop, as above
 LONG_MEMORY_BIASES = (6.0, 10.0)
+# the forward at +10 is held to 4e-6 with little to spare: seeds of the
+# draw at full width and S=4096, each one's distance from the float64
+# recurrence printed (a measurement of the margin: the held case is the
+# draw above)
+LONG_MEMORY_SEEDS = 8
 # xlstm_1_3b's whole stack with the kernels against the plain loops, in
 # fp32 at this shorter S (the plain mLSTM loop updates the (2, 4, 512,
 # 512) state in ~15 ops a step), within XLSTM_FP32_PATH_RTOL of the
@@ -2625,18 +2661,28 @@ LONG_MEMORY_BIASES = (6.0, 10.0)
 # output, through the ill-conditioned random-init stack
 XLSTM_PLAIN_S = 512
 RG_TRAIN_STEPS = 2
+# the full-depth training children of phase 13 (each the card's memory to
+# itself) and their steps
+TRAIN_CHILDREN = {"recurrentgemma_2b": "--recurrent-train",
+                  "xlstm_1_3b": "--xlstm-train"}
 RECURRENT_DRYRUN_CELLS = (("recurrentgemma_2b", "train_4k", "single"),
                           ("recurrentgemma_2b", "train_4k", "multi"),
                           ("recurrentgemma_2b", "prefill_32k", "single"),
                           ("recurrentgemma_2b", "prefill_32k", "multi"),
+                          ("xlstm_1_3b", "train_4k", "single"),
+                          ("xlstm_1_3b", "train_4k", "multi"),
                           ("xlstm_1_3b", "prefill_32k", "single"),
                           ("xlstm_1_3b", "prefill_32k", "multi"))
-SCAN_KERNELS = ("rglru_scan", "rglru_scan_bwd", "mlstm_scan", "slstm_scan")
-# the substring of each scan's CUDA kernel name in a profile
+SCAN_KERNELS = ("rglru_scan", "rglru_scan_bwd", "mlstm_scan", "slstm_scan",
+                "mlstm_scan_bwd", "slstm_scan_bwd")
+# the substring of each scan's CUDA kernels' names in a profile (a
+# backward op's reruns of the forward's passes carry the backward's name)
 SCAN_KERNEL_NAMES = {"rglru_scan": "rglru_scan_fwd",
                      "rglru_scan_bwd": "rglru_scan_bwd",
                      "mlstm_scan": "mlstm_scan_fwd",
-                     "slstm_scan": "slstm_scan_fwd"}
+                     "slstm_scan": "slstm_scan_fwd",
+                     "mlstm_scan_bwd": "mlstm_scan_bwd",
+                     "slstm_scan_bwd": "slstm_scan_bwd"}
 
 
 def scan_inputs(kind: str, shape, gen, spikes: float = 0.0,
@@ -2645,12 +2691,19 @@ def scan_inputs(kind: str, shape, gen, spikes: float = 0.0,
     them: RG-LRU decays in (0, 1); the mLSTM's k scaled by 1/sqrt(hd) and
     its forget gate a logsigmoid (``spikes`` added to its input gate at
     3% of the steps); the sLSTM's forget pre-activation; both forget
-    gates with the blocks' +3 bias, or ``forget_bias``."""
+    gates with the blocks' +3 bias, or ``forget_bias``. A backward's
+    inputs are its forward's, the mLSTM's output h (by its kernel) and a
+    random output gradient."""
     import torch
     import torch.nn.functional as F
 
     def rnd(*s):
         return torch.randn(s, generator=gen, device="cuda")
+    if kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+        fwd = kind[:-len("_bwd")]
+        args = scan_inputs(fwd, shape, gen, spikes, forget_bias)
+        h = (scan_fns(fwd)[0](*args),) if fwd == "mlstm_scan" else ()
+        return args + h + (rnd(*shape),)
     if kind in ("rglru_scan", "rglru_scan_bwd"):
         a = torch.rand(shape, generator=gen, device="cuda") * 0.99 + 0.005
         if kind == "rglru_scan":
@@ -2671,24 +2724,28 @@ def scan_inputs(kind: str, shape, gen, spikes: float = 0.0,
 
 def scan_fns(kind: str) -> tuple:
     """(kernel wrapper, plain version) of one scan."""
-    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
-    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+    from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_bwd
+    from repro_torch.kernels.mlstm_scan.ref import (mlstm_scan_bwd_ref,
+                                                    mlstm_scan_ref)
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
     from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                     rglru_scan_ref)
-    from repro_torch.kernels.slstm_scan.ops import slstm_scan
-    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_bwd
+    from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
+                                                    slstm_scan_ref)
     return {"rglru_scan": (rglru_scan, rglru_scan_ref),
             "rglru_scan_bwd": (rglru_scan_bwd, rglru_scan_bwd_ref),
             "mlstm_scan": (mlstm_scan, mlstm_scan_ref),
-            "slstm_scan": (slstm_scan, slstm_scan_ref)}[kind]
+            "slstm_scan": (slstm_scan, slstm_scan_ref),
+            "mlstm_scan_bwd": (mlstm_scan_bwd, mlstm_scan_bwd_ref),
+            "slstm_scan_bwd": (slstm_scan_bwd, slstm_scan_bwd_ref)}[kind]
 
 
 def scan_shapes(kind: str, S: int) -> list:
     """The smoke width and the full width of a scan at length S."""
-    if kind == "mlstm_scan":
+    if kind.startswith("mlstm"):
         return [(SCAN_B, S, 4, 16), (SCAN_B, S, 4, 512)]
-    d = 2048 if kind == "slstm_scan" else 2560
+    d = 2048 if kind.startswith("slstm") else 2560
     return [(SCAN_B, S, 64), (SCAN_B, S, d)]
 
 
@@ -2696,8 +2753,11 @@ def scan_bound_ms(kind: str, shape) -> tuple:
     """The least time for one scan at ``shape``: each input read and each
     output written once over the HBM rate, or its fp32 operations over
     the fp32 rate, the larger. RG-LRU: a multiply and an add a step
-    (three forms the backward); mLSTM: 5 B S H hd^2 (roofline.py); sLSTM:
-    about 25 a step, each transcendental counted as one."""
+    (three forms the backward); mLSTM: 5 B S H hd^2 (roofline.py), twice
+    that backward (q, k, v, h, dh, i, f in; dq, dk, dv, di, df out);
+    sLSTM: about 25 a step, each transcendental counted as one, and
+    backward those 25 again (the states) and about 35 for the step back
+    (z, i, f, o, dh in; dz, di, df, do out)."""
     n = math.prod(shape)
     if kind == "rglru_scan":
         nbytes, ops = 12 * n, 2 * n
@@ -2706,6 +2766,11 @@ def scan_bound_ms(kind: str, shape) -> tuple:
     elif kind == "mlstm_scan":
         B, S, H, hd = shape
         nbytes, ops = 4 * (4 * n + 2 * B * S * H), 5 * n * hd
+    elif kind == "mlstm_scan_bwd":
+        B, S, H, hd = shape
+        nbytes, ops = 4 * (8 * n + 4 * B * S * H), 10 * n * hd
+    elif kind == "slstm_scan_bwd":
+        nbytes, ops = 36 * n, 60 * n
     else:
         nbytes, ops = 20 * n, 25 * n
     b, o = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
@@ -2727,18 +2792,20 @@ def mlstm_tensor_bound_ms(shape, chunk: int = 32) -> float:
 
 def scan_parity(out: dict) -> None:
     """Each scan kernel against its plain version on the card at the
-    smoke and full widths, S = 1, 200 and 4096 (the mLSTM also where its
-    clamp binds): the RG-LRU's bitwise, the mLSTM's and sLSTM's within
-    SCAN_RTOL of the largest |h|."""
+    smoke and full widths, S = 1, 200 and 4096 (the mLSTM's two also
+    where its clamp binds): the RG-LRU's bitwise, the mLSTM's and sLSTM's
+    within SCAN_RTOL of the largest |h|, their backwards within BWD_RTOL
+    of each gradient's largest |entry|."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(31)
     errs = {}
     for kind in SCAN_KERNELS:
         kern, plain = scan_fns(kind)
+        rtol = BWD_RTOL if kind.endswith("_bwd") else SCAN_RTOL
         worst_abs = worst_rel = 0.0
         cases = [(shape, 0.0) for S in PARITY_LENGTHS
                  for shape in scan_shapes(kind, S)]
-        if kind == "mlstm_scan":
+        if kind.startswith("mlstm"):
             cases.append((scan_shapes(kind, SCAN_S)[1], MLSTM_CLAMP_SPIKES))
         for shape, spikes in cases:
             args = scan_inputs(kind, shape, gen, spikes)
@@ -2747,30 +2814,32 @@ def scan_parity(out: dict) -> None:
             torch.cuda.synchronize()
             require(kern.launches == n0 + 1, f"{kind} did not launch")
             ref = plain(*args)
-            got, ref = ((got,), (ref,)) if kind != "rglru_scan_bwd" \
-                else (got, ref)
+            got, ref = (got, ref) if isinstance(got, tuple) \
+                else ((got,), (ref,))
+            case_rel = 0.0
             for a, b in zip(got, ref):
                 err = max_abs_err(a, b)
                 rel = err / max(float(b.abs().max()), 1e-30)
+                case_rel = max(case_rel, rel)
                 worst_abs, worst_rel = max(worst_abs, err), max(worst_rel,
                                                                 rel)
                 if kind.startswith("rglru"):
                     require(torch.equal(a, b), f"{kind} {shape}: differs "
                             f"from its plain version by {err}")
                 else:
-                    require(rel <= SCAN_RTOL, f"{kind} {shape} (spikes "
-                            f"{spikes}): {rel} of the largest |h|")
+                    require(rel <= rtol, f"{kind} {shape} (spikes "
+                            f"{spikes}): {rel} of the largest |out|")
             if spikes:
-                q, k, v, i, f = args
+                q, k, v, i, f = args[:5]
                 binds = clamp_share(q, k, i, f)
                 print(f"[scan] {kind} {shape} with input-gate spikes of "
                       f"{spikes}: the clamp binds at {binds!r} of the "
-                      f"steps; max |diff| {err!r}, {rel!r} of the largest "
-                      f"|h| (rtol {SCAN_RTOL})")
+                      f"steps; {case_rel!r} of the largest |out| (rtol "
+                      f"{rtol})")
                 require(binds > 0.5, f"the clamp binds at only {binds}")
             del args, got, ref
         errs[kind] = worst_abs
-        held = "bitwise" if kind.startswith("rglru") else f"rtol {SCAN_RTOL}"
+        held = "bitwise" if kind.startswith("rglru") else f"rtol {rtol}"
         print(f"[scan] {kind} against its plain version on the card at "
               f"{[scan_shapes(kind, S) for S in PARITY_LENGTHS]}: max "
               f"|diff| {worst_abs!r}, {worst_rel!r} of the largest |out| "
@@ -2784,7 +2853,9 @@ def scan_long_memory(out: dict, gen) -> None:
     """The mLSTM and sLSTM kernels at full width and S = 4096 with
     forget gates near 1 (LONG_MEMORY_BIASES), within SCAN_RTOL of the
     largest |h|: the mLSTM's of ``mlstm_scan_exact``, the fp32 loop's
-    own distance from it printed beside; the sLSTM's of its loop."""
+    own distance from it printed beside; the sLSTM's of its loop. The
+    mLSTM forward's distance at +10 over LONG_MEMORY_SEEDS draws is
+    printed. Then the backwards (``scan_long_memory_bwd``)."""
     import torch
     from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_exact
     rows = {}
@@ -2813,7 +2884,68 @@ def scan_long_memory(out: dict, gen) -> None:
                     f"+{bias}: {held} of the largest |h|")
             rows[f"{kind} +{bias}"] = row
             del args, got, ref
+    kern, _ = scan_fns("mlstm_scan")
+    bias, sweep = LONG_MEMORY_BIASES[-1], []
+    for seed in range(LONG_MEMORY_SEEDS):
+        args = scan_inputs("mlstm_scan", scan_shapes("mlstm_scan", SCAN_S)[1],
+                           torch.Generator(device="cuda").manual_seed(seed),
+                           forget_bias=bias)
+        exact = mlstm_scan_exact(*args)
+        sweep.append(float((kern(*args).double() - exact).abs().max())
+                     / float(exact.abs().max()))
+        del args, exact
+    over = sum(x > SCAN_RTOL for x in sweep)
+    print(f"[scan] mlstm_scan forget bias +{bias} over seeds 0-"
+          f"{LONG_MEMORY_SEEDS - 1} of the draw: {sweep!r} of the largest "
+          f"|h| of mlstm_scan_exact (largest {max(sweep)!r}; {over} of "
+          f"{LONG_MEMORY_SEEDS} above {SCAN_RTOL})")
+    rows[f"mlstm_scan +{bias} seeds"] = sweep
+    scan_long_memory_bwd(rows, gen)
     out["scan_long_memory"] = rows
+
+
+def scan_long_memory_bwd(rows: dict, gen) -> None:
+    """The backward kernels at full width and S = 4096 with forget gates
+    near 1: the sLSTM's within BWD_RTOL of each gradient's largest entry
+    of its plain version; the mLSTM's against ``mlstm_scan_bwd_exact``
+    (float64 given the fp32 loop's m), no farther from it than the larger
+    of BWD_RTOL and the fp32 plain backward's own distance, both
+    printed."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_exact
+    names = {"mlstm_scan_bwd": "q k v i f", "slstm_scan_bwd": "z i f o"}
+    for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+        kern, plain = scan_fns(kind)
+        shape = scan_shapes(kind, SCAN_S)[1]
+        for bias in LONG_MEMORY_BIASES:
+            args = scan_inputs(kind, shape, gen, forget_bias=bias)
+            got, ref = kern(*args), plain(*args)
+            row = {}
+            if kind == "mlstm_scan_bwd":
+                q, k, v, i, f, _, dh = args
+                exact = mlstm_scan_bwd_exact(q, k, v, i, f, dh)
+            for name, a, b, e in zip(names[kind].split(), got, ref,
+                                     exact if kind == "mlstm_scan_bwd"
+                                     else ref):
+                if kind == "mlstm_scan_bwd":
+                    top = float(e.abs().max())
+                    ours = float((a.double() - e).abs().max()) / top
+                    loop = float((b.double() - e).abs().max()) / top
+                    row[name] = dict(to_exact=ours, loop_to_exact=loop)
+                    require(ours <= max(BWD_RTOL, loop), f"{kind} +{bias} "
+                            f"d{name}: {ours} of the float64 gradient's "
+                            f"largest entry, the fp32 loop {loop}")
+                else:
+                    rel = max_abs_err(a, b) / float(b.abs().max())
+                    row[name] = dict(to_loop=rel)
+                    require(rel <= BWD_RTOL, f"{kind} +{bias} d{name}: "
+                            f"{rel}")
+            print(f"[scan] {kind} {shape} forget bias +{bias}, of each "
+                  f"gradient's largest |entry| (held: the mLSTM's to_exact "
+                  f"within max({BWD_RTOL}, loop_to_exact), the sLSTM's "
+                  f"to_loop within {BWD_RTOL}): {row!r}")
+            rows[f"{kind} +{bias}"] = row
+            del args, got, ref
+            exact = None
 
 
 def clamp_share(q, k, i, f) -> float:
@@ -3039,14 +3171,15 @@ def xlstm_forward(card: str, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def recurrentgemma_train_child() -> int:
-    """``python chip_smoke.py --recurrent-train``: full-width, full-depth
-    recurrentgemma_2b as ``launch/train.py --full`` builds it
-    (``dryrun_config``: bf16 compute, fp32 params, scanned, remat;
-    AdamW), RG_TRAIN_STEPS Trainer steps at B=2, S=4096, in a process of
-    its own (the step peaks at ~78 GB of the card's 80). Prints one JSON
-    line: the launches of the steps (counts set to 0 just before), losses,
-    step times, peak memory, and a profiled step's scan device times."""
+def recurrent_train_child(arch: str) -> int:
+    """``python chip_smoke.py --recurrent-train`` (recurrentgemma_2b) or
+    ``--xlstm-train`` (xlstm_1_3b): the model at full width and depth as
+    ``launch/train.py --full`` builds it (``dryrun_config``: bf16
+    compute, fp32 params, scanned, remat; AdamW), RG_TRAIN_STEPS Trainer
+    steps at B=2, S=4096, in a process of its own (recurrentgemma's step
+    peaks at ~78 GB of the card's 80). Prints one JSON line: the launches
+    of the steps (counts set to 0 just before), losses, step times, peak
+    memory, and a profiled step's busy time and scan device times."""
     import numpy as np
     import torch
 
@@ -3057,7 +3190,7 @@ def recurrentgemma_train_child() -> int:
     from repro_torch.train.step import default_optimizer_kind
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
-    cfg = dryrun_config(get_config("recurrentgemma_2b"))
+    cfg = dryrun_config(get_config(arch))
     ocfg = OptimizerConfig(kind=default_optimizer_kind(cfg), lr=1e-3,
                            warmup_steps=10, total_steps=RG_TRAIN_STEPS)
     t = Trainer(cfg, ocfg, DataConfig(vocab_size=cfg.vocab_size,
@@ -3082,83 +3215,107 @@ def recurrentgemma_train_child() -> int:
     t.run()
     torch.cuda.synchronize()
     launches = kernel_counts()
-    rec = dict(n_params=n_params, n_layers=cfg.n_layers, optimizer=ocfg.kind,
-               remat=cfg.remat, scan_layers=cfg.scan_layers,
+    rec = dict(arch=arch, n_params=n_params, n_layers=cfg.n_layers,
+               optimizer=ocfg.kind, remat=cfg.remat,
+               scan_layers=cfg.scan_layers,
                losses=[m["loss"] for m in t.metrics_log],
                host_ms=[x * 1e3 for x in t.step_times],
                event_ms=[s.elapsed_time(e) for s, e in events],
                peak_bytes=torch.cuda.max_memory_allocated(),
                total_bytes=torch.cuda.get_device_properties(0).total_memory,
                launches=launches,
-               n_rglru=cfg.pattern_for_depth().count("rglru"))
+               expected=scan_launches(cfg, RG_TRAIN_STEPS),
+               blocks={k: cfg.pattern_for_depth().count(k)
+                       for k in ("rglru", "mlstm", "slstm")})
     t._step_fn = step_fn
     t.tcfg.steps += 1
     prof = profile_device(t.run)
     rec["profiled_step"] = dict(
         busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
         scan_device_ms={k: op_ms(prof, SCAN_KERNEL_NAMES[k])
-                        for k in ("rglru_scan", "rglru_scan_bwd")})
+                        for k in rec["expected"]},
+        scan_kernel_ms=scan_kernel_parts(prof))
     rec["finite"] = bool(np.all(np.isfinite(rec["losses"])))
     print(json.dumps(rec))
     return 0
 
 
-def recurrentgemma_train(card: str, out: dict) -> None:
-    """RG_TRAIN_STEPS full-width recurrentgemma_2b Trainer steps at S=4096
-    through the RG-LRU kernels, in a child process (the card's memory to
-    itself): each step launches the forward scan twice per RG-LRU block
-    (remat recomputes it) and the backward scan once."""
+def recurrent_train(arch: str, card: str, out: dict) -> None:
+    """RG_TRAIN_STEPS full-width, full-depth Trainer steps of ``arch`` at
+    S=4096 through the scan kernels, in a child process (the card's
+    memory to itself): each step launches every recurrent block's forward
+    scan twice (remat recomputes it) and its backward once."""
     import torch
     torch.cuda.empty_cache()
-    print(f"[scan] before the training child: {torch.cuda.memory_reserved()}"
-          f" bytes reserved by this process")
+    print(f"[scan] before the {arch} training child: "
+          f"{torch.cuda.memory_reserved()} bytes reserved by this process")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                          "--recurrent-train"], cwd=ROOT, env=env,
+                          TRAIN_CHILDREN[arch]], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
-    require(res.returncode == 0, f"recurrentgemma training child: exit "
+    require(res.returncode == 0, f"{arch} training child: exit "
             f"{res.returncode}: {res.stderr[-3000:]}")
     rec = json.loads(res.stdout.strip().splitlines()[-1])
-    n, steps = rec["n_rglru"], RG_TRAIN_STEPS
+    steps = RG_TRAIN_STEPS
     expect = dict.fromkeys(rec["launches"], 0)
-    expect.update(rglru_scan=steps * n * (2 if rec["remat"] else 1),
-                  rglru_scan_bwd=steps * n)
+    expect.update(rec["expected"])
     tokens = SCAN_B * SCAN_S
-    print(f"[scan] recurrentgemma_2b training at full width and depth "
-          f"({rec['n_layers']} layers, {rec['n_params']} params, "
-          f"{rec['optimizer']}, remat={rec['remat']}, scan_layers="
+    prof = rec["profiled_step"]
+    per_step = {k: v / steps for k, v in rec["launches"].items() if v}
+    share = sum(v or 0.0 for v in prof["scan_device_ms"].values()) \
+        / prof["busy_ms"]
+    print(f"[scan] {arch} training at full width and depth "
+          f"({rec['n_layers']} layers: {rec['blocks']}, {rec['n_params']} "
+          f"params, {rec['optimizer']}, remat={rec['remat']}, scan_layers="
           f"{rec['scan_layers']}), {steps} Trainer steps at B={SCAN_B} "
           f"S={SCAN_S}: losses {rec['losses']}; host-clock step ms "
           f"{rec['host_ms']}; CUDA-event step ms {rec['event_ms']} "
           f"({tokens / (rec['event_ms'][-1] * 1e-3)!r} tokens/s at the "
           f"last); max_memory_allocated {rec['peak_bytes']} of "
-          f"{rec['total_bytes']} bytes; launches {rec['launches']}; a "
-          f"profiled step: device busy {rec['profiled_step']['busy_ms']!r} "
-          f"ms of {rec['profiled_step']['wall_ms']!r} ms, scans' device ms "
-          f"{rec['profiled_step']['scan_device_ms']}; card {card}")
+          f"{rec['total_bytes']} bytes; launches {rec['launches']} "
+          f"({per_step} a step); a profiled step: device busy "
+          f"{prof['busy_ms']!r} ms of {prof['wall_ms']!r} ms, scans' "
+          f"device ms {prof['scan_device_ms']} (their share {share!r} of "
+          f"the busy time), by CUDA kernel {prof['scan_kernel_ms']}; "
+          f"card {card}")
     require(rec["finite"] and len(rec["losses"]) == steps,
-            f"rg training losses {rec['losses']}")
-    require(rec["launches"] == expect, f"rg training launches "
+            f"{arch} training losses {rec['losses']}")
+    require(rec["launches"] == expect, f"{arch} training launches "
             f"{rec['launches']}, expected {expect}")
-    scan_device_ms(out, rec["profiled_step"]["scan_device_ms"],
-                   {"rglru_scan_bwd": n})
-    out["rg_train"] = rec
+    # device ms per launch of the backwards (the forwards' come from the
+    # profiled forwards without autograd)
+    scan_device_ms(out, {k: v for k, v in prof["scan_device_ms"].items()
+                         if k.endswith("_bwd")},
+                   {k: v // steps for k, v in rec["expected"].items()})
+    out[f"{arch}_train"] = rec
 
 
-def recurrentgemma_grad_parity(out: dict) -> None:
-    """A 2-layer (both RG-LRU) fp32 recurrentgemma_2b at full width: one
-    loss + gradient on the card, through both RG-LRU kernels, against the
-    CPU (the plain versions)."""
+# the 2-layer fp32 gradients against the CPU: (overrides, S, loss rtol,
+# grad rtol). recurrentgemma's first two blocks are both RG-LRU; xlstm's
+# pattern is cut to one mLSTM and one sLSTM block, at a shorter S (the
+# CPU's plain mLSTM backward updates a (2, 4, 512, 512) state ~30 ops a
+# step)
+GRAD_PARITY = {
+    "recurrentgemma_2b": (dict(n_layers=2), 128, TRAIN_LOSS_RTOL,
+                          TRAIN_GRAD_RTOL),
+    "xlstm_1_3b": (dict(n_layers=2, block_pattern=("mlstm", "slstm")), 64,
+                   XLSTM_LOSS_RTOL, XLSTM_GRAD_RTOL)}
+
+
+def recurrent_grad_parity(arch: str, out: dict) -> None:
+    """A 2-layer fp32 ``arch`` at full width: one loss + gradient on the
+    card, through its blocks' scan kernels and their backwards, against
+    the CPU (the plain versions)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    cfg = dataclasses.replace(
-        get_config("recurrentgemma_2b"), n_layers=2, dtype=torch.float32,
-        scan_layers=False, remat=False)
+    over, S, loss_rtol, grad_rtol = GRAD_PARITY[arch]
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32,
+                              scan_layers=False, remat=False, **over)
     params = lm.init_lm(torch.Generator().manual_seed(3), cfg)
-    batch = train_batch(cfg, 2, 128, torch.Generator().manual_seed(4))
+    batch = train_batch(cfg, 2, S, torch.Generator().manual_seed(4))
     t0 = time.perf_counter()
     lr_, gr = loss_and_grads(cfg, params, batch)
     cpu_s = time.perf_counter() - t0
@@ -3167,40 +3324,43 @@ def recurrentgemma_grad_parity(out: dict) -> None:
                             _tree_to(batch, "cuda"))
     launches = kernel_counts()
     rel = abs(lc - lr_) / abs(lr_)
-    cmp = compare_grads(gc, gr, TRAIN_GRAD_RTOL)
-    print(f"[scan] 2-layer fp32 recurrentgemma_2b at full width (B=2 "
-          f"S=128): loss cpu {lr_!r} |cuda - cpu|/cpu {rel!r}; "
-          f"{cmp['leaves']} grad leaves within {cmp['grad_rel']!r} of each "
-          f"leaf's max |g| (rtol {TRAIN_GRAD_RTOL}), {cmp['noise_leaves']} "
-          f"noise leaves; launches {launches} ({cpu_s:.1f} s on the CPU)")
-    require(rel <= TRAIN_LOSS_RTOL, f"rg 2-layer loss {lc} vs {lr_}")
+    cmp = compare_grads(gc, gr, grad_rtol)
+    print(f"[scan] 2-layer fp32 {arch} at full width "
+          f"({cfg.pattern_for_depth()}, B=2 S={S}): loss cpu {lr_!r} "
+          f"|cuda - cpu|/cpu {rel!r} (rtol {loss_rtol}); {cmp['leaves']} "
+          f"grad leaves within {cmp['grad_rel']!r} of each leaf's max |g| "
+          f"(rtol {grad_rtol}), {cmp['noise_leaves']} noise leaves; "
+          f"launches {launches} ({cpu_s:.1f} s on the CPU)")
+    require(rel <= loss_rtol, f"{arch} 2-layer loss {lc} vs {lr_}")
     expect = dict.fromkeys(launches, 0)
-    expect.update(rglru_scan=2, rglru_scan_bwd=2)
-    require(launches == expect, f"rg 2-layer launches {launches}")
-    out["rg_grad_launches"] = launches
+    expect.update(scan_launches(cfg))
+    require(launches == expect, f"{arch} 2-layer launches {launches}")
+    out[f"{arch}_grad_launches"] = launches
     del params, gr, gc
     torch.cuda.empty_cache()
 
 
 def phase_recurrent(card: str, out: dict) -> None:
-    """The recurrent scans (slice F): each kernel against its plain version
-    and timed; full-width recurrentgemma_2b and xlstm_1_3b forwards at
-    S=4096, recurrentgemma_2b training at S=4096 and a 2-layer gradient
-    against the CPU, each path with its launch counts set to 0 just
-    before; then the recurrent families' dry-run cells, each a process of
-    its own, all started together."""
+    """The recurrent scans (slices F and G): each kernel against its
+    plain version and timed; full-width recurrentgemma_2b and xlstm_1_3b
+    forwards at S=4096, both trained at full depth at S=4096 and each a
+    2-layer gradient against the CPU, each path with its launch counts
+    set to 0 just before; then the recurrent families' dry-run cells,
+    each a process of its own, all started together."""
     timed("recurrent/parity", scan_parity, out)
     timed("recurrent/timing", scan_timing, card, out)
     timed("recurrent/recurrentgemma forward", recurrentgemma_forward, card,
           out)
-    timed("recurrent/recurrentgemma training", recurrentgemma_train, card,
-          out)
+    for arch in TRAIN_CHILDREN:
+        timed(f"recurrent/{arch} training", recurrent_train, arch, card,
+              out)
     work = ROOT / "build" / "chip_smoke_recurrent"
     work.mkdir(parents=True, exist_ok=True)
     dry = start_dryruns(work / "dryrun", RECURRENT_DRYRUN_CELLS)
     try:
-        timed("recurrent/recurrentgemma gradient", recurrentgemma_grad_parity,
-              out)
+        for arch in GRAD_PARITY:
+            timed(f"recurrent/{arch} gradient", recurrent_grad_parity, arch,
+                  out)
         timed("recurrent/xlstm forward", xlstm_forward, card, out)
         out["dryrun_recurrent"] = timed("recurrent/dry run", finish_dryruns,
                                         dry, work / "dryrun", card, "scan")
@@ -3219,9 +3379,10 @@ def timed(label: str, fn, *args):
 
 
 def main() -> int:
-    if sys.argv[1:] == ["--recurrent-train"]:      # phase 13's child
+    child = {flag: arch for arch, flag in TRAIN_CHILDREN.items()}
+    if len(sys.argv) == 2 and sys.argv[1] in child:  # phase 13's children
         sys.path.insert(0, str(ROOT / "src"))
-        return recurrentgemma_train_child()
+        return recurrent_train_child(child[sys.argv[1]])
     try:
         import torch
     except ImportError:
@@ -3298,10 +3459,11 @@ def main() -> int:
         by_path[k]["sharded"] = out["sharded_launches"][k]
         by_path[k]["recurrentgemma_2b forward (S=4096)"] = \
             out["rg_forward"]["launches"][k]
-        by_path[k]["recurrentgemma_2b training (S=4096)"] = \
-            out["rg_train"]["launches"][k]
-        by_path[k]["recurrentgemma_2b 2-layer gradient"] = \
-            out["rg_grad_launches"][k]
+        for arch in TRAIN_CHILDREN:
+            by_path[k][f"{arch} training (S=4096)"] = \
+                out[f"{arch}_train"]["launches"][k]
+            by_path[k][f"{arch} 2-layer gradient"] = \
+                out[f"{arch}_grad_launches"][k]
         by_path[k]["xlstm_1_3b forward (S=4096)"] = \
             out["xlstm_forward"]["launches"][k]
     scans = {
@@ -3316,7 +3478,13 @@ def main() -> int:
                        "kernel)"),
         "slstm_scan": ("slstm_scan.cu", "src/repro/models/recurrent.py:282 "
                        "(lax.scan of _slstm_step in chunked_scan; no Pallas "
-                       "kernel)")}
+                       "kernel)"),
+        "mlstm_scan_bwd": ("mlstm_scan.cu", "src/repro/models/recurrent.py"
+                           ":209 (the scan of _mlstm_step under jax.grad; "
+                           "no Pallas kernel)"),
+        "slstm_scan_bwd": ("slstm_scan.cu", "src/repro/models/recurrent.py"
+                           ":282 (the scan of _slstm_step under jax.grad; "
+                           "no Pallas kernel)")}
     kernels = [
         dict(name="dp_stages", route="cuda",
              source="src/repro_torch/csrc/dp_stages.cu",

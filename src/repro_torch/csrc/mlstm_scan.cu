@@ -176,11 +176,13 @@ __device__ __forceinline__ void frag_b(const float* p, int ldn, int ldk,
 // is NaN it stays NaN) is tracked off the chain. Steps past the sequence
 // read f = 0 and i = -inf: they leave m and b as they are.
 constexpr int GD = 8;                    // chunks of gates in flight
-__global__ void __launch_bounds__(32)
-mlstm_scan_fwd_gates(const float* __restrict__ ipre,
-                     const float* __restrict__ lf, float* __restrict__ mo,
-                     float* __restrict__ bo, float* __restrict__ so,
-                     float* __restrict__ wo, int S, int H, int NC) {
+__device__ __forceinline__ void gates_pass(const float* __restrict__ ipre,
+                                           const float* __restrict__ lf,
+                                           float* __restrict__ mo,
+                                           float* __restrict__ bo,
+                                           float* __restrict__ so,
+                                           float* __restrict__ wo, int S,
+                                           int H, int NC) {
   __shared__ float is[GD][L], fs[GD][L];
   const int bh = blockIdx.x, bb = bh / H, hh = bh % H;
   const int lane = threadIdx.x;
@@ -233,6 +235,14 @@ mlstm_scan_fwd_gates(const float* __restrict__ ipre,
     wo[o] = w;
   }
   cp_wait<0>();
+}
+
+__global__ void __launch_bounds__(32)
+mlstm_scan_fwd_gates(const float* __restrict__ ipre,
+                     const float* __restrict__ lf, float* __restrict__ mo,
+                     float* __restrict__ bo, float* __restrict__ so,
+                     float* __restrict__ wo, int S, int H, int NC) {
+  gates_pass(ipre, lf, mo, bo, so, wo, S, H, NC);
 }
 
 // rows [0, L) x columns [x0, x1) of a chunk of q or k into dst (row
@@ -794,4 +804,498 @@ extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
                    : launch_xw<false>(xw, a, (float*)h, (float*)scratch, B,
                                       S, H, hd, NC, tiles, st, sk, kbn,
                                       smem, s));
+}
+
+// ============================================================================
+// mlstm_scan_bwd: the recurrence's backward. Plain version:
+// repro_torch/kernels/mlstm_scan/ref.py::mlstm_scan_bwd_ref (a loop back in
+// time); the chunkwise algorithm below is modelled step for step by
+// repro_torch/kernels/mlstm_scan/chunked.py::mlstm_chunked_bwd. Stands in
+// for jax.grad of the JAX package's lax.scan of _mlstm_step.
+//
+// Inputs: q, k, v, i, f as the forward's, h its output and dh h's gradient
+// (B, S, H, hd) fp32; outputs dq, dk, dv (B, S, H, hd), di, df (B, S, H).
+//
+// Bound on an H100 SXM: operations. The model counts a backward as two
+// forwards, 10 B S H hd^2: at xlstm_1_3b's width, B = 2, S = 4096, 8.6e10,
+// 1.28 ms at 67 TFLOP/s fp32.
+//
+// Design. In a chunk the state is a sum of decayed inputs: C_t = sum_s
+// D_ts k_s v_s^T, log D_ts = F_t - F_s + i_s - m_t (F the sum of f), so the
+// backward is that of P_ts = D_ts (q_t . k_s) plus the gates through log D.
+// Given m (the forward's gates pass, rerun), eight kernels:
+//  1. mlstm_scan_bwd_gates, the forward's gates pass again: m, b, s, w;
+//  2. mlstm_scan_bwd_nprev, a thread per (row, head, column x): n before
+//     every chunk (n <- s_e n + K^T w, as the forward builds it);
+//  3. mlstm_scan_bwd_intra, a block per (chunk, head, row): Q K^T and dH
+//     V^T; d_t = s_t (q_t . n_prev) + rowsum(P), den, dd_t = -(dh_t . h_t)
+//     / den d den/d d; writes dq = dS K, dk = dS^T Q, dv = (P / den)^T dH
+//     (dS = (dH V^T / den + dd) ⊙ D), and per step s / den, s dd and R_t =
+//     (dh_t . h_t)(1 - d den/d|d|), the row sum of G = dP ⊙ P (0 where the
+//     clamp does not bind);
+//  4-6. mlstm_scan_bwd_walk, one generic kernel run three times: a block per
+//     (32 rows of a hd x hd state M, head, row) walks the chunks, each step
+//     adding out_t[r] += alpha_t (M y_t)[r] + beta_t nv[r] for the chunk's
+//     steps, then M <- s_e M + X^T diag(gamma) Z and nv <- s_e nv + X^T
+//     gamma_n. Forward, M = C (rows of C): dq_t += (s_t / den_t) C dh_t +
+//     s_t dd_t n. Backward in time, M = dC (rows): dk_s += w_s (dC v_s +
+//     dn), dC <- s_e dC + Q^T diag(s / den) dH, dn <- s_e dn + Q^T (s dd);
+//     and M = dC^T (rows of dC^T): dv_s += w_s dC^T k_s. Each sum a walk
+//     forms runs over all of M's columns, so every output is the block's
+//     own: no partial sums leave a block, and no state is stored (the
+//     forward walk rebuilds C). Warp w owns columns [w XW, (w + 1) XW) of
+//     M and the same columns of the chunk's y and z, lane r row r of M (in
+//     registers); the warps' partial sums meet once a chunk in shared
+//     memory.
+//  7. mlstm_scan_bwd_dots, a warp per (row, step, head): Cs_t = k_t . dk_t,
+//     the column sum of G;
+//  8. mlstm_scan_bwd_dgates, a warp per (row, head), serially from the last
+//     step: dF_t = R_t - Cs_t summed from the end in double (A_t; A_0 = 0,
+//     no pair crosses step 0), m_t taking -R_t and handing it back through
+//     m_t = max(f_t + m_{t-1}, i_t) (halves at a tie, as jnp.maximum):
+//     df_t = A_t + da_t, di_t = Cs_t + (1 - sel_t)(dm - R_t).
+// No hd^2 product per step forms a gate gradient. Every product runs on the
+// FMA units in fp32 (a first version; the forward's 3xTF32 tensor-core
+// tiles are the lever), each chunk's update of M summed apart and added to
+// the decayed M once (as the forward adds C's). Scratch: m, b, s, w, s /
+// den, s dd, R, Cs per step and n per chunk (B H NC hd): 3 MB at
+// xlstm_1_3b, B = 2, S = 4096. No state is stored: the 1.07 GB of C at
+// every chunk boundary that a stored-state design needs is rebuilt by the
+// forward walk instead.
+
+namespace {
+
+constexpr int XB = 32;                   // hd columns a slice (bwd intra)
+constexpr int XBS = XB + 4;              // row stride of the slices
+constexpr int IB = 256;                  // bwd intra threads
+static_assert(L * L / 4 == IB && L * XB / 4 == IB, "4 outputs a thread");
+
+__device__ __forceinline__ float half_at_ties(float x, float y) {
+  return x > y ? 1.0f : (x == y ? 0.5f : 0.0f);
+}
+
+// ---- 2. n before every chunk -----------------------------------------------
+__global__ void __launch_bounds__(128)
+mlstm_scan_bwd_nprev(const float* __restrict__ k, const float* __restrict__ so,
+                     const float* __restrict__ wo, float* __restrict__ np,
+                     int S, int H, int hd, int NC) {
+  const int x = blockIdx.x * 128 + threadIdx.x;
+  if (x >= hd) return;
+  const int hh = blockIdx.y, bb = blockIdx.z, bh = bb * H + hh;
+  const long long g0 = (long long)bh * NC * L;
+  float n = 0.0f;
+  for (int c = 0; c < NC; ++c) {
+    const int c0 = c * L, Lc = min(L, S - c0);
+    np[((long long)bh * NC + c) * hd + x] = n;
+    float acc = 0.0f;
+    for (int s = 0; s < Lc; ++s)
+      acc = fmaf(wo[g0 + c0 + s],
+                 k[((long long)(bb * S + c0 + s) * H + hh) * hd + x], acc);
+    n = __fadd_rn(__fmul_rn(so[g0 + c0 + Lc - 1], n), acc);
+  }
+}
+
+// ---- 3. intra ---------------------------------------------------------------
+// Thread (t = tid / 8, g = tid % 8) owns P's row t, columns 4g .. 4g + 3.
+__global__ void __launch_bounds__(IB)
+mlstm_scan_bwd_intra(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ h,
+                     const float* __restrict__ dh,
+                     const float* __restrict__ ipre,
+                     const float* __restrict__ mo, const float* __restrict__ bo,
+                     const float* __restrict__ so, const float* __restrict__ np,
+                     float* __restrict__ dq, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ sdo,
+                     float* __restrict__ sddo, float* __restrict__ Ro,
+                     int S, int H, int hd, int NC) {
+  __shared__ __align__(16) float xs[5][L][XBS];   // q k v dh h, then q k dh
+  __shared__ float ns[XB];
+  __shared__ float ds[L][L + 1], ps[L][L + 1];    // dS, P / den
+  const int c = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int bh = bb * H + hh, c0 = c * L, Lc = min(L, S - c0);
+  const int tid = threadIdx.x, t = tid >> 3, g = tid & 7, s0 = 4 * g;
+  const long long row0 = (long long)(bb * S + c0) * H + hh;
+  const long long o = (long long)bh * NC * L + c0;
+  const float* npc = np + ((long long)bh * NC + c) * hd;
+  auto load = [&](int slot, const float* src, int x0) {
+    for (int e = tid; e < L * XB; e += IB) {
+      const int r = e / XB, x = e % XB;
+      xs[slot][r][x] = (r < Lc && x0 + x < hd)
+                           ? src[(row0 + (long long)r * H) * hd + x0 + x]
+                           : 0.0f;
+    }
+  };
+  float sq[4] = {}, dvh[4] = {}, qn = 0.0f, u = 0.0f;
+  for (int x0 = 0; x0 < hd; x0 += XB) {
+    __syncthreads();
+    load(0, q, x0);
+    load(1, k, x0);
+    load(2, v, x0);
+    load(3, dh, x0);
+    load(4, h, x0);
+    if (tid < XB) ns[tid] = x0 + tid < hd ? npc[x0 + tid] : 0.0f;
+    __syncthreads();
+    for (int x = 0; x < XB; ++x) {
+      const float qx = xs[0][t][x], dx = xs[3][t][x];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sq[e] = fmaf(qx, xs[1][s0 + e][x], sq[e]);
+        dvh[e] = fmaf(dx, xs[2][s0 + e][x], dvh[e]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {        // this thread's 4 columns of the
+      const int x = s0 + e;              // slice for q . n and dh . h
+      qn = fmaf(xs[0][t][x], ns[x], qn);
+      u = fmaf(xs[3][t][x], xs[4][t][x], u);
+    }
+  }
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) {
+    qn = __fadd_rn(qn, __shfl_xor_sync(0xffffffffu, qn, m));
+    u = __fadd_rn(u, __shfl_xor_sync(0xffffffffu, u, m));
+  }
+  // D, P, the row sum of P, and the step's scalars
+  const float mt = mo[o + t], bt = bo[o + t];
+  float D[4], P[4], rs = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int s = s0 + e;
+    D[e] = 0.0f;
+    if (s <= t && t < Lc) {
+      const float is = ipre[row0 + (long long)s * H];
+      D[e] = expf(__fadd_rn(__fsub_rn(is, mt), __fsub_rn(bt, bo[o + s])));
+    }
+    P[e] = __fmul_rn(D[e], sq[e]);
+    rs = __fadd_rn(rs, P[e]);
+  }
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1)
+    rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, m));
+  const float st = t < Lc ? so[o + t] : 0.0f;
+  const float d = __fadd_rn(__fmul_rn(st, qn), rs);
+  const float ad = fabsf(d);
+  const float den = ad != ad ? ad : fmaxf(ad, 1.0f);
+  const float mu = half_at_ties(ad, 1.0f);
+  const float sg = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+  const float dd = t < Lc ? __fmul_rn(__fmul_rn(-__fdiv_rn(u, den), mu), sg)
+                          : 0.0f;
+  if (g == 0) {
+    sdo[o + t] = t < Lc ? __fdiv_rn(st, den) : 0.0f;
+    sddo[o + t] = __fmul_rn(st, dd);
+    Ro[o + t] = t < Lc ? __fmul_rn(u, __fsub_rn(1.0f, mu)) : 0.0f;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ds[t][s0 + e] = __fmul_rn(__fadd_rn(__fdiv_rn(dvh[e], den), dd), D[e]);
+    ps[t][s0 + e] = __fdiv_rn(P[e], den);
+  }
+  // dq = dS K, dk = dS^T Q, dv = (P / den)^T dH, a slice of hd at a time:
+  // thread (r = tid / 8, 4 columns at 4 (tid % 8))
+  const int r = tid >> 3, xc = 4 * (tid & 7);
+  for (int x0 = 0; x0 < hd; x0 += XB) {
+    __syncthreads();
+    load(0, q, x0);
+    load(1, k, x0);
+    load(3, dh, x0);
+    __syncthreads();
+    float aq[4] = {}, ak[4] = {}, av[4] = {};
+    for (int s = 0; s <= r; ++s) {       // dS is 0 above the diagonal
+      const float w = ds[r][s];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) aq[e] = fmaf(w, xs[1][s][xc + e], aq[e]);
+    }
+    for (int tt = r; tt < L; ++tt) {
+      const float w = ds[tt][r], pw = ps[tt][r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ak[e] = fmaf(w, xs[0][tt][xc + e], ak[e]);
+        av[e] = fmaf(pw, xs[3][tt][xc + e], av[e]);
+      }
+    }
+    if (r < Lc) {
+      const long long base = (row0 + (long long)r * H) * hd + x0 + xc;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (x0 + xc + e < hd) {
+          dq[base + e] = aq[e];
+          dk[base + e] = ak[e];
+          dv[base + e] = av[e];
+        }
+      }
+    }
+  }
+}
+
+// ---- 4-6. the walks ---------------------------------------------------------
+struct Walk {
+  const float *y, *z, *x;                // (B, S, H, hd)
+  const float *alpha, *beta, *gamma, *gamman;   // per step
+  float* out;                            // (B, S, H, hd), added to
+  int rev, nvec;
+};
+
+template <int XW>
+__global__ void __launch_bounds__(NT, 1)
+mlstm_scan_bwd_walk(Walk wk, const float* __restrict__ so, int S, int H,
+                    int hd, int NC, int st, int vec) {
+  extern __shared__ __align__(16) float sm[];
+  float* ys = sm;                        // L x st: the chunk's y
+  float* zs = ys + L * st;               // L x st: its z
+  float* xt = zs + L * st;               // L x (T + 1): its x, M's rows
+  float* red = xt + L * (T + 1);         // W x L x (T + 1): partial sums
+  float* nv = red + W * L * (T + 1);     // T
+  float* sc = nv + T;                    // alpha, beta, gamma, gamman (L each)
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int r0 = blockIdx.x * T, hh = blockIdx.y, bb = blockIdx.z;
+  const int bh = bb * H + hh, xb = wid * XW;
+  const long long brow = (long long)bb * S * H + hh;
+  const long long g0 = (long long)bh * NC * L;
+  float M[XW];
+#pragma unroll
+  for (int e = 0; e < XW; ++e) M[e] = 0.0f;
+  if (tid < T) nv[tid] = 0.0f;
+  for (int it = 0; it < NC; ++it) {
+    const int c = wk.rev ? NC - 1 - it : it, c0 = c * L;
+    const int Lc = min(L, S - c0);
+    const bool last = it == NC - 1;
+    __syncthreads();                     // the last chunk's reads are done
+    // this warp's columns of y and z; zeros past Lc and hd
+    const long long rowc = brow + (long long)c0 * H;
+    if (vec) {
+      for (int e = lane; e < L * XW / 4; e += 32) {
+        const int t = e / (XW / 4), x = xb + 4 * (e % (XW / 4));
+        const bool ok = t < Lc && x < hd;
+        const long long gi = (rowc + (long long)t * H) * hd + x;
+        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        *reinterpret_cast<float4*>(ys + t * st + x) =
+            ok ? ld4(wk.y + gi) : zero;
+        *reinterpret_cast<float4*>(zs + t * st + x) =
+            ok ? ld4(wk.z + gi) : zero;
+      }
+    } else {
+      for (int e = lane; e < L * XW; e += 32) {
+        const int t = e / XW, x = xb + e % XW;
+        const bool ok = t < Lc && x < hd;
+        const long long gi = (rowc + (long long)t * H) * hd + x;
+        ys[t * st + x] = ok ? wk.y[gi] : 0.0f;
+        zs[t * st + x] = ok ? wk.z[gi] : 0.0f;
+      }
+    }
+    for (int e = tid; e < L * T; e += NT) {
+      const int t = e / T, rr = e % T;
+      xt[t * (T + 1) + rr] = (t < Lc && r0 + rr < hd)
+          ? wk.x[(rowc + (long long)t * H) * hd + r0 + rr] : 0.0f;
+    }
+    if (tid < 4 * L) {
+      const int which = tid / L, t = tid % L;
+      const float* src = which == 0 ? wk.alpha : which == 1 ? wk.beta
+                       : which == 2 ? wk.gamma : wk.gamman;
+      sc[tid] = (t < Lc && src) ? src[g0 + c0 + t] : 0.0f;
+    }
+    const float a = so[g0 + c0 + Lc - 1];  // the chunk's decay s_e
+    __syncthreads();
+    // M y_t over this warp's columns, for every step of the chunk
+    for (int t = 0; t < L; ++t) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int e = 0; e < XW; e += 4) {
+        const float4 y4 = ld4(ys + t * st + xb + e);
+        acc = fmaf(M[e], y4.x, acc);
+        acc = fmaf(M[e + 1], y4.y, acc);
+        acc = fmaf(M[e + 2], y4.z, acc);
+        acc = fmaf(M[e + 3], y4.w, acc);
+      }
+      red[(wid * L + t) * (T + 1) + lane] = acc;
+    }
+    if (!last) {                         // M <- a M + X^T diag(gamma) Z
+      float xg[L];
+#pragma unroll
+      for (int t = 0; t < L; ++t)
+        xg[t] = __fmul_rn(xt[t * (T + 1) + lane], sc[2 * L + t]);
+#pragma unroll
+      for (int e = 0; e < XW; e += 4) {
+        float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
+#pragma unroll
+        for (int t = 0; t < L; ++t) {
+          const float4 z4 = ld4(zs + t * st + xb + e);
+          u0 = fmaf(xg[t], z4.x, u0);
+          u1 = fmaf(xg[t], z4.y, u1);
+          u2 = fmaf(xg[t], z4.z, u2);
+          u3 = fmaf(xg[t], z4.w, u3);
+        }
+        M[e] = __fadd_rn(__fmul_rn(a, M[e]), u0);
+        M[e + 1] = __fadd_rn(__fmul_rn(a, M[e + 1]), u1);
+        M[e + 2] = __fadd_rn(__fmul_rn(a, M[e + 2]), u2);
+        M[e + 3] = __fadd_rn(__fmul_rn(a, M[e + 3]), u3);
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < L * T; e += NT) {   // the warps' sums, out +=
+      const int t = e / T, rr = e % T;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < W; ++w)
+        sum = __fadd_rn(sum, red[(w * L + t) * (T + 1) + rr]);
+      float val = __fmul_rn(sc[t], sum);
+      if (wk.nvec) val = __fadd_rn(val, __fmul_rn(sc[L + t], nv[rr]));
+      if (t < Lc && r0 + rr < hd) {
+        float* p = wk.out + (rowc + (long long)t * H) * hd + r0 + rr;
+        *p = __fadd_rn(*p, val);
+      }
+    }
+    __syncthreads();                     // nv is read
+    if (wk.nvec && !last && tid < T) {   // nv <- a nv + X^T gamma_n
+      float acc = 0.0f;
+      for (int t = 0; t < L; ++t)
+        acc = fmaf(xt[t * (T + 1) + tid], sc[3 * L + t], acc);
+      nv[tid] = __fadd_rn(__fmul_rn(a, nv[tid]), acc);
+    }
+  }
+}
+
+// ---- 7. Cs_t = k_t . dk_t --------------------------------------------------
+__global__ void __launch_bounds__(256)
+mlstm_scan_bwd_dots(const float* __restrict__ k, const float* __restrict__ dk,
+                    float* __restrict__ cso, int B, int S, int H, int hd,
+                    int NC) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)B * S * H) return;
+  const int hh = (int)(row % H), t = (int)((row / H) % S);
+  const int bb = (int)(row / ((long long)S * H));
+  float acc = 0.0f;
+  for (int x = lane; x < hd; x += 32)
+    acc = fmaf(k[row * hd + x], dk[row * hd + x], acc);
+#pragma unroll
+  for (int m = 16; m; m >>= 1)
+    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, m));
+  if (lane == 0) cso[((long long)(bb * H + hh) * NC) * L + t] = acc;
+}
+
+// ---- 1. the forward's gates pass, under the backward's name ----------------
+__global__ void __launch_bounds__(32)
+mlstm_scan_bwd_gates(const float* __restrict__ ipre,
+                     const float* __restrict__ lf, float* __restrict__ mo,
+                     float* __restrict__ bo, float* __restrict__ so,
+                     float* __restrict__ wo, int S, int H, int NC) {
+  gates_pass(ipre, lf, mo, bo, so, wo, S, H, NC);
+}
+
+// ---- 8. the gates' gradients, serially from the last step ------------------
+__global__ void __launch_bounds__(32)
+mlstm_scan_bwd_dgates(const float* __restrict__ ipre,
+                     const float* __restrict__ lf, const float* __restrict__ mo,
+                     const float* __restrict__ Ro,
+                     const float* __restrict__ cso, float* __restrict__ di,
+                     float* __restrict__ df, int S, int H, int NC) {
+  const int bh = blockIdx.x, bb = bh / H, hh = bh % H, lane = threadIdx.x;
+  const long long g0 = (long long)bh * NC * L;
+  double acc = 0.0, dm = 0.0;
+  for (int c = NC - 1; c >= 0; --c) {
+    const int t = c * L + lane;
+    float r = 0.0f, cs = 0.0f, sel = 0.0f;
+    if (t < S) {
+      const long long gi = (long long)(bb * S + t) * H + hh;
+      r = Ro[g0 + t];
+      cs = cso[g0 + t];
+      const float m_prev = t ? mo[g0 + t - 1] : -INFINITY;
+      sel = half_at_ties(__fadd_rn(lf[gi], m_prev), ipre[gi]);
+    }
+    double my_df = 0.0, my_di = 0.0;
+    for (int u = L - 1; u >= 0; --u) {   // every lane runs the chain
+      const double ru = __shfl_sync(0xffffffffu, r, u);
+      const double cu = __shfl_sync(0xffffffffu, cs, u);
+      const double su = __shfl_sync(0xffffffffu, sel, u);
+      if (c * L + u >= S) continue;
+      const double dA = c * L + u ? ru - cu : -acc;
+      acc += dA;
+      const double gg = dm - ru, da = su * gg;
+      if (lane == u) {
+        my_df = acc + da;
+        my_di = (ru - dA) + (gg - da);
+      }
+      dm = da;
+    }
+    if (t < S) {
+      const long long gi = (long long)(bb * S + t) * H + hh;
+      df[gi] = (float)my_df;
+      di[gi] = (float)my_di;
+    }
+  }
+}
+
+template <int XW>
+cudaError_t walk(const Walk& wk, const float* so, int B, int S, int H,
+                 int hd, int NC, int vec, cudaStream_t s) {
+  const int st = W * XW + 4;
+  const int smem = 4 * (2 * L * st + (1 + W) * L * (T + 1) + T + 4 * L);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_scan_bwd_walk<XW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  mlstm_scan_bwd_walk<XW><<<dim3((hd + T - 1) / T, H, B), NT, smem, s>>>(
+      wk, so, S, H, hd, NC, st, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t walk_xw(int xw, const Walk& wk, const float* so, int B, int S,
+                    int H, int hd, int NC, int vec, cudaStream_t s) {
+  switch (xw) {
+    case 16: return walk<16>(wk, so, B, S, H, hd, NC, vec, s);
+    case 32: return walk<32>(wk, so, B, S, H, hd, NC, vec, s);
+    default: return walk<64>(wk, so, B, S, H, hd, NC, vec, s);
+  }
+}
+
+}  // namespace
+
+// xw: rows of a warp as the forward's plan has them (16, 32 or 64, hd <=
+// 8 xw); scratch: 8 B H NC 32 floats of per-step values, then B H NC hd of
+// n; vec: hd % 4 == 0 and every pointer 16-byte aligned.
+extern "C" int mlstm_scan_bwd_launch(
+    const void* q, const void* k, const void* v, const void* i, const void* f,
+    const void* h, const void* dh, void* dq, void* dk, void* dv, void* di,
+    void* df, void* scratch, int B, int S, int H, int hd, int xw, int vec,
+    void* stream) {
+  if (B == 0 || S == 0 || H == 0 || hd == 0) return (int)cudaSuccess;
+  if ((xw != 16 && xw != 32 && xw != 64) || W * xw < hd)
+    return (int)cudaErrorInvalidValue;
+  const int NC = (S + L - 1) / L;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long n = (long long)B * H * NC * L;
+  float* mo = (float*)scratch;
+  float *bo = mo + n, *so = bo + n, *wo = so + n, *sd = wo + n;
+  float *sdd = sd + n, *R = sdd + n, *Cs = R + n, *np = Cs + n;
+  const float *qp = (const float*)q, *kp = (const float*)k,
+              *vp = (const float*)v, *ip = (const float*)i,
+              *fp = (const float*)f, *hp = (const float*)h,
+              *dhp = (const float*)dh;
+  float *dqp = (float*)dq, *dkp = (float*)dk, *dvp = (float*)dv;
+  mlstm_scan_bwd_gates<<<B * H, 32, 0, s>>>(ip, fp, mo, bo, so, wo, S, H, NC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  mlstm_scan_bwd_nprev<<<dim3((hd + 127) / 128, H, B), 128, 0, s>>>(
+      kp, so, wo, np, S, H, hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mlstm_scan_bwd_intra<<<dim3(NC, H, B), IB, 0, s>>>(
+      qp, kp, vp, hp, dhp, ip, mo, bo, so, np, dqp, dkp, dvp, sd, sdd, R, S,
+      H, hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (NC > 1) {                          // one chunk: nothing crosses one
+    const Walk walks[3] = {
+        {dhp, vp, kp, sd, sdd, wo, wo, dqp, 0, 1},     // dq: C, forward
+        {vp, dhp, qp, wo, wo, sd, sdd, dkp, 1, 1},     // dk: dC, backward
+        {kp, qp, dhp, wo, nullptr, sd, nullptr, dvp, 1, 0}};  // dv: dC^T
+    for (const Walk& wk : walks)
+      if ((err = walk_xw(xw, wk, so, B, S, H, hd, NC, vec, s)) != cudaSuccess)
+        return (int)err;
+  }
+  const long long rows = (long long)B * S * H;
+  mlstm_scan_bwd_dots<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      kp, dkp, Cs, B, S, H, hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  mlstm_scan_bwd_dgates<<<B * H, 32, 0, s>>>(ip, fp, mo, R, Cs, (float*)di,
+                                             (float*)df, S, H, NC);
+  return (int)cudaGetLastError();
 }

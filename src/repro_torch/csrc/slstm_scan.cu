@@ -111,10 +111,11 @@ __device__ __forceinline__ bool place(Place& p, int B, int S, int d,
   return true;
 }
 
-__global__ void __launch_bounds__(THREADS)
-slstm_scan_fwd_local(const float* __restrict__ z, const float* __restrict__ ip,
-                     const float* __restrict__ fp, float* __restrict__ sc,
-                     int B, int S, int d, int NC, int chunk) {
+__device__ __forceinline__ void local_pass(const float* __restrict__ z,
+                                           const float* __restrict__ ip,
+                                           const float* __restrict__ fp,
+                                           float* __restrict__ sc, int B,
+                                           int S, int d, int NC, int chunk) {
   Place p;
   if (!place(p, B, S, d, NC, chunk)) return;
   State st{0.0f, 0.0f, -INFINITY};
@@ -142,10 +143,17 @@ slstm_scan_fwd_local(const float* __restrict__ z, const float* __restrict__ ip,
   sc[3 * plane + p.idx] = G;
 }
 
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_fwd_local(const float* __restrict__ z, const float* __restrict__ ip,
+                     const float* __restrict__ fp, float* __restrict__ sc,
+                     int B, int S, int d, int NC, int chunk) {
+  local_pass(z, ip, fp, sc, B, S, d, NC, chunk);
+}
+
 // chunks' local states are read U at a time, before the serial updates
 // that need them
-__global__ void __launch_bounds__(THREADS)
-slstm_scan_fwd_combine(float* __restrict__ sc, int B, int d, int NC) {
+__device__ __forceinline__ void combine_pass(float* __restrict__ sc, int B,
+                                             int d, int NC) {
   const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (idx >= (long long)B * d) return;
   const long long b = idx / d, u = idx % d;
@@ -180,6 +188,11 @@ slstm_scan_fwd_combine(float* __restrict__ sc, int B, int d, int NC) {
       }
     }
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_fwd_combine(float* __restrict__ sc, int B, int d, int NC) {
+  combine_pass(sc, B, d, NC);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -250,5 +263,273 @@ extern "C" int slstm_scan_launch(const void* z, const void* i, const void* f,
   slstm_scan_fwd_apply<<<blocks, THREADS, 0, s>>>(zp, ip, fp, opp, sc,
                                                   (float*)h, B, S, d, NC,
                                                   chunk);
+  return (int)cudaGetLastError();
+}
+
+// ============================================================================
+// slstm_scan_bwd: the recurrence's backward. Plain version:
+// repro_torch/kernels/slstm_scan/ref.py::slstm_scan_bwd_ref (a loop back in
+// time, one step of it ref.py::slstm_bwd_step); the chunked scan below is
+// modelled step for step by repro_torch/kernels/slstm_scan/chunked.py::
+// slstm_chunked_bwd. Stands in for jax.grad of the JAX package's lax.scan
+// of _slstm_step.
+//
+// Inputs: z, i, f, o as the forward's and dh, h's gradient (B, S, d) fp32;
+// outputs dz, di, df, do (B, S, d).
+//
+// Bound on an H100 SXM: bytes, 36 per (b, t, unit) (five inputs read, four
+// outputs written): at xlstm_1_3b's width, B = 2, S = 4096, 604 MB, 0.180
+// ms at 3.35 TB/s.
+//
+// Design: given the states, a step of the backward is linear in the
+// gradients it carries back, (dc, dn, dm), so the forward's chunked scan
+// over time runs backwards, in chunks of BC = 16 steps, a thread per
+// (row, chunk, unit):
+//  1. slstm_scan_bwd_states and slstm_scan_bwd_incoming, the forward's
+//     local pass and combine at BC: each chunk's incoming (c, n, m);
+//  2. slstm_scan_bwd_local: each chunk's states rerun from its incoming
+//     state into registers, then walked back from a zero carry with dh
+//     (b) and from each unit carry without it (the columns of A): the
+//     chunk maps the carry x at its end to A x + b at its start;
+//  3. slstm_scan_bwd_combine, a thread per (row, unit), serial from the
+//     last chunk: x_{c-1} = A_c x_c + b_c from x = 0, each chunk's x kept;
+//  4. slstm_scan_bwd_apply: each chunk rerun and walked back from its x,
+//     writing the gradients.
+// With one chunk only pass 4 runs. The inputs are read from device memory
+// three times (passes 1, 2 and 4): 13 floats an element in, 4 out.
+// Arithmetic as the forward's (no contraction, no fast math); ties of
+// max(a, i) and of max(n, 1) split the gradient in halves, as
+// jnp.maximum does. The chunks' carries differ from the loop's by
+// rounding, so the gradients are held to the plain version within a
+// tolerance.
+
+namespace {
+
+constexpr int BC = 16;                   // steps per backward chunk
+
+__device__ __forceinline__ float half_at_ties(float x, float y) {
+  return x > y ? 1.0f : (x == y ? 0.5f : 0.0f);
+}
+
+// 1. the forward's passes at BC, under the backward's names
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_bwd_states(const float* __restrict__ z,
+                      const float* __restrict__ ip,
+                      const float* __restrict__ fp, float* __restrict__ sc,
+                      int B, int S, int d, int NC) {
+  local_pass(z, ip, fp, sc, B, S, d, NC, BC);
+}
+
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_bwd_incoming(float* __restrict__ sc, int B, int d, int NC) {
+  combine_pass(sc, B, d, NC);
+}
+
+// one step's coefficients, from its incoming state p and new state s
+struct Coef {
+  float fg, ig, tz, so, nd, mu, sel, sgf, cp, np, c;
+};
+
+__device__ __forceinline__ Coef coef(const State& p, const State& s, float z,
+                                     float i, float f, float o) {
+  Coef k;
+  const float a = __fadd_rn(log_sigmoid(f), p.m);
+  k.fg = expf(__fsub_rn(a, s.m));
+  k.ig = expf(__fsub_rn(i, s.m));
+  k.tz = tanhf(z);
+  k.so = sigmoid(o);
+  k.nd = s.n != s.n ? s.n : fmaxf(s.n, 1.0f);
+  k.mu = half_at_ties(s.n, 1.0f);
+  k.sel = half_at_ties(a, i);
+  k.sgf = sigmoid(-f);
+  k.cp = p.c;
+  k.np = p.n;
+  k.c = s.c;
+  return k;
+}
+
+struct Carry {
+  float dc, dn, dm;
+};
+
+// one step back: the carry of the incoming state from the new state's;
+// the gradients (dz, di, df, do) into g
+__device__ __forceinline__ void back(const Coef& k, float dh, Carry& x,
+                                     float (&g)[4]) {
+  const float dhs = __fmul_rn(dh, k.so);
+  g[3] = __fmul_rn(__fmul_rn(__fdiv_rn(__fmul_rn(dh, k.c), k.nd), k.so),
+                   __fsub_rn(1.0f, k.so));
+  const float dc = __fadd_rn(x.dc, __fdiv_rn(dhs, k.nd));
+  const float dn = __fsub_rn(
+      x.dn, __fmul_rn(__fdiv_rn(__fmul_rn(dhs, k.c), __fmul_rn(k.nd, k.nd)),
+                      k.mu));
+  g[0] = __fmul_rn(__fmul_rn(dc, k.ig),
+                   __fsub_rn(1.0f, __fmul_rn(k.tz, k.tz)));
+  const float ga = __fmul_rn(k.fg, __fadd_rn(__fmul_rn(dc, k.cp),
+                                             __fmul_rn(dn, k.np)));
+  const float gi = __fmul_rn(k.ig, __fadd_rn(__fmul_rn(dc, k.tz), dn));
+  const float dmt = __fsub_rn(__fsub_rn(x.dm, ga), gi);
+  const float da = __fadd_rn(ga, __fmul_rn(k.sel, dmt));
+  g[1] = __fadd_rn(gi, __fmul_rn(__fsub_rn(1.0f, k.sel), dmt));
+  g[2] = __fmul_rn(da, k.sgf);
+  x = Carry{__fmul_rn(k.fg, dc), __fmul_rn(k.fg, dn), da};
+}
+
+// a chunk's states into registers: st[u] before step t0 + u
+__device__ __forceinline__ void rerun(const Place& p, const float* sc,
+                                      long long plane, const float* z,
+                                      const float* ip, const float* fp,
+                                      int d, State (&st)[BC + 1],
+                                      float (&zv)[BC], float (&iv)[BC],
+                                      float (&fv)[BC]) {
+  st[0] = State{0.0f, 0.0f, -INFINITY};
+  if (p.t0 > 0)
+    st[0] = State{sc[p.idx], sc[plane + p.idx], sc[2 * plane + p.idx]};
+  const int n = p.t1 - p.t0;
+#pragma unroll
+  for (int u = 0; u < BC; ++u) {
+    st[u + 1] = st[u];
+    if (u < n) {
+      const long long o = p.base + (long long)u * d;
+      zv[u] = z[o];
+      iv[u] = ip[o];
+      fv[u] = fp[o];
+      step(st[u + 1], zv[u], iv[u], fv[u]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_bwd_local(const float* __restrict__ z, const float* __restrict__ ip,
+                     const float* __restrict__ fp, const float* __restrict__ op,
+                     const float* __restrict__ dh,
+                     const float* __restrict__ sc, float* __restrict__ mp,
+                     int B, int S, int d, int NC) {
+  Place p;
+  if (!place(p, B, S, d, NC, BC)) return;
+  const long long plane = (long long)B * NC * d;
+  State st[BC + 1];
+  float zv[BC], iv[BC], fv[BC];
+  rerun(p, sc, plane, z, ip, fp, d, st, zv, iv, fv);
+  Carry b{0.0f, 0.0f, 0.0f}, cols[3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f},
+                                       {0.0f, 0.0f, 1.0f}};
+  float g[4];
+  const int n = p.t1 - p.t0;
+#pragma unroll
+  for (int u = BC - 1; u >= 0; --u) {
+    if (u < n) {
+      const long long o = p.base + (long long)u * d;
+      const Coef k = coef(st[u], st[u + 1], zv[u], iv[u], fv[u], op[o]);
+      back(k, dh[o], b, g);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) back(k, 0.0f, cols[j], g);
+    }
+  }
+  const float m[12] = {cols[0].dc, cols[0].dn, cols[0].dm,
+                       cols[1].dc, cols[1].dn, cols[1].dm,
+                       cols[2].dc, cols[2].dn, cols[2].dm, b.dc, b.dn, b.dm};
+#pragma unroll
+  for (int e = 0; e < 12; ++e) mp[e * plane + p.idx] = m[e];
+}
+
+// each chunk's carry at its end into ce (3 planes), from the last chunk
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_bwd_combine(const float* __restrict__ mp, float* __restrict__ ce,
+                       int B, int d, int NC) {
+  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= (long long)B * d) return;
+  const long long b = idx / d, u = idx % d;
+  const long long plane = (long long)B * NC * d;
+  float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+  for (int c = NC - 1; c >= 0; --c) {
+    const long long o = (b * NC + c) * d + u;
+    ce[o] = x0;
+    ce[plane + o] = x1;
+    ce[2 * plane + o] = x2;
+    float m[12];
+#pragma unroll
+    for (int e = 0; e < 12; ++e) m[e] = mp[e * plane + o];
+    const float y0 = __fadd_rn(__fadd_rn(__fadd_rn(m[9], __fmul_rn(m[0], x0)),
+                                         __fmul_rn(m[3], x1)),
+                               __fmul_rn(m[6], x2));
+    const float y1 = __fadd_rn(__fadd_rn(__fadd_rn(m[10], __fmul_rn(m[1], x0)),
+                                         __fmul_rn(m[4], x1)),
+                               __fmul_rn(m[7], x2));
+    const float y2 = __fadd_rn(__fadd_rn(__fadd_rn(m[11], __fmul_rn(m[2], x0)),
+                                         __fmul_rn(m[5], x1)),
+                               __fmul_rn(m[8], x2));
+    x0 = y0;
+    x1 = y1;
+    x2 = y2;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+slstm_scan_bwd_apply(const float* __restrict__ z, const float* __restrict__ ip,
+                     const float* __restrict__ fp, const float* __restrict__ op,
+                     const float* __restrict__ dh,
+                     const float* __restrict__ sc, const float* __restrict__ ce,
+                     float* __restrict__ dz, float* __restrict__ di,
+                     float* __restrict__ df, float* __restrict__ dout, int B,
+                     int S, int d, int NC) {
+  Place p;
+  if (!place(p, B, S, d, NC, BC)) return;
+  const long long plane = (long long)B * NC * d;
+  State st[BC + 1];
+  float zv[BC], iv[BC], fv[BC];
+  rerun(p, sc, plane, z, ip, fp, d, st, zv, iv, fv);
+  Carry x{0.0f, 0.0f, 0.0f};
+  if (NC > 1) x = Carry{ce[p.idx], ce[plane + p.idx], ce[2 * plane + p.idx]};
+  float g[4];
+  const int n = p.t1 - p.t0;
+#pragma unroll
+  for (int u = BC - 1; u >= 0; --u) {
+    if (u < n) {
+      const long long o = p.base + (long long)u * d;
+      back(coef(st[u], st[u + 1], zv[u], iv[u], fv[u], op[o]), dh[o], x, g);
+      dz[o] = g[0];
+      di[o] = g[1];
+      df[o] = g[2];
+      dout[o] = g[3];
+    }
+  }
+}
+
+}  // namespace
+
+// scratch: 19 B NC d floats, NC = ceil(S / 16): the forward's 4 planes,
+// the chunks' maps (12) and carries (3); unused when NC = 1.
+extern "C" int slstm_scan_bwd_launch(const void* z, const void* i,
+                                     const void* f, const void* o,
+                                     const void* dh, void* dz, void* di,
+                                     void* df, void* dout, void* scratch,
+                                     int B, int S, int d, void* stream) {
+  if (B == 0 || S == 0 || d == 0) return (int)cudaSuccess;
+  const int NC = (S + BC - 1) / BC;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *zp = (const float*)z, *ip = (const float*)i,
+              *fp = (const float*)f, *opp = (const float*)o,
+              *dhp = (const float*)dh;
+  const long long plane = (long long)B * NC * d;
+  float* sc = (float*)scratch;
+  float *mp = sc + 4 * plane, *ce = mp + 12 * plane;
+  const int blocks = (int)((plane + THREADS - 1) / THREADS);
+  cudaError_t err;
+  if (NC > 1) {
+    slstm_scan_bwd_states<<<blocks, THREADS, 0, s>>>(zp, ip, fp, sc, B, S,
+                                                     d, NC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int cb = (int)(((long long)B * d + THREADS - 1) / THREADS);
+    slstm_scan_bwd_incoming<<<cb, THREADS, 0, s>>>(sc, B, d, NC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    slstm_scan_bwd_local<<<blocks, THREADS, 0, s>>>(zp, ip, fp, opp, dhp, sc,
+                                                    mp, B, S, d, NC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    slstm_scan_bwd_combine<<<cb, THREADS, 0, s>>>(mp, ce, B, d, NC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  slstm_scan_bwd_apply<<<blocks, THREADS, 0, s>>>(
+      zp, ip, fp, opp, dhp, sc, ce, (float*)dz, (float*)di, (float*)df,
+      (float*)dout, B, S, d, NC);
   return (int)cudaGetLastError();
 }

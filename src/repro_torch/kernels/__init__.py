@@ -13,15 +13,17 @@
   rglru_scan    - ``rglru_scan`` / ``rglru_scan_bwd`` (csrc/rglru_scan.cu):
                   the RG-LRU's linear recurrence over a sequence and its
                   backward, one thread per (batch row, channel).
-  mlstm_scan    - ``mlstm_scan`` (csrc/mlstm_scan.cu): xLSTM's mLSTM
-                  recurrence, the (hd x hd) state kept on chip per head.
-  slstm_scan    - ``slstm_scan`` (csrc/slstm_scan.cu): xLSTM's sLSTM
-                  recurrence, one thread per (batch row, unit).
+  mlstm_scan    - ``mlstm_scan`` / ``mlstm_scan_bwd`` (csrc/mlstm_scan.cu):
+                  xLSTM's mLSTM recurrence, chunkwise, the (hd x hd)
+                  state kept on chip per head, and its backward.
+  slstm_scan    - ``slstm_scan`` / ``slstm_scan_bwd`` (csrc/slstm_scan.cu):
+                  xLSTM's sLSTM recurrence as a chunked scan over time,
+                  and its backward, the same scan run backwards.
   build         - nvcc -> shared library -> ctypes loader.
 
 The scans are ``torch.library`` custom ops (fake versions, a DTensor
-rule, FLOP counts; the RG-LRU's with its backward) and stand in for the
-JAX package's ``lax.associative_scan`` / ``lax.scan`` in
+rule, FLOP counts; each forward's autograd is its backward op) and stand
+in for the JAX package's ``lax.associative_scan`` / ``lax.scan`` in
 ``repro/models/recurrent.py``, which has no Pallas kernel for them.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain

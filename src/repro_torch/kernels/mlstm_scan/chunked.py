@@ -34,10 +34,39 @@ The clamp binds where |den_t| < 1, and there h_t scales with e^{-m_t}:
 that is why m is the loop's and not the published chunkwise kernels'
 stabilizer. Only the sums are taken in another order than the loop's,
 so h agrees with it to a tolerance.
+
+:func:`mlstm_chunked_bwd` models the backward kernels the same way. In
+a chunk the state is a sum of decayed inputs, C_t = sum_s D_ts k_s
+v_s^T with log D_ts = F_t - F_s + i_s - m_t (F the sum of f from the
+start), so the gradient is that of P_ts = D_ts (q_t . k_s) and of the
+gates through log D. Given m:
+
+* intra: dnum_t = dh_t / den_t, dd_t = -(dh_t . h_t) / den_t d den/d d
+  (d_t = s_t (q_t . n_prev) + rowsum(P), recomputed); dS = (dH V^T /
+  den + dd) ⊙ D, and dq += dS K, dk += dS^T Q, dv += (P / den)^T dH;
+* inter, a forward walk: dq_t += (s_t / den_t) C_prev dh_t + s_t dd_t
+  n_prev, C and n rebuilt chunk after chunk as the forward builds them;
+* inter, a reverse walk over dC = sum_t (decay) q_t dnum_t^T and dn:
+  dk_s += w_s (dC v_s + dn), dv_s += w_s dC^T k_s, then dC <- s_e dC +
+  Q^T diag(s / den) dH and dn <- s_e dn + Q^T (s dd) (the kernel runs
+  it twice, once tiled by C's rows for dk, once by its columns for dv);
+* the gates, per step, without any hd^2 product: with G = dP ⊙ P the
+  gradient of log D, its row sum R_t = dh_t . h_t + dd_t d_t = (dh_t .
+  h_t)(1 - d den/d|d|) (0 where the clamp does not bind: h is then
+  invariant to D's scale) and its column sum Cs_s = k_s . dk_s; so dF_t
+  = R_t - Cs_t, di_t = Cs_t, and m_t takes -R_t, handed back through
+  m_t = max(f_t + m_{t-1}, i_t) serially, as the gates pass runs it
+  forward. df_t is A_t, the reverse cumulative sum of dF from t (in
+  float64: the G of pairs s < t <= t'), plus what the max hands to f;
+  A_0 is 0 (no pair crosses step 0: f_0 meets only m_{-1} = -inf), and
+  di_0 is written with it as R_0 - (A_0 - A_1), so that at S = 1 both
+  gradients are 0 exactly, as the loop's are.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.mlstm_scan.ref import half_at_ties
 
 
 def mlstm_chunk_gates(i: torch.Tensor, f: torch.Tensor, chunk: int):
@@ -99,3 +128,74 @@ def mlstm_chunked(q, k, v, i, f, chunk: int):
             "bshx,bhs,bshj->bhxj", kc, wc, vc)
         n = a[..., None] * n + torch.einsum("bshx,bhs->bhx", kc, wc)
     return torch.cat(hs, dim=1), torch.cat(dens, dim=1)
+
+
+def mlstm_chunked_bwd(q, k, v, i, f, h, dh, chunk: int):
+    """``(dq, dk, dv, di, df)`` as ``ref.mlstm_scan_bwd_ref`` computes
+    them, through the chunkwise decomposition of the backward kernels."""
+    B, S, H, hd = q.shape
+    m, b, s, w = mlstm_chunk_gates(i, f, chunk)
+    bounds = [slice(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    sd, sdd, R = (torch.empty_like(i) for _ in range(3))
+    n = q.new_zeros((B, H, hd))
+    for sl in bounds:                        # intra, and n before a chunk
+        qc, kc, vc, hc, dhc = (x[:, sl] for x in (q, k, v, h, dh))
+        P = mlstm_intra(qc, kc, i[:, sl], b[:, sl], m[:, sl])  # (B,H,L,L)
+        D = mlstm_intra(torch.ones_like(qc[..., :1]),
+                        torch.ones_like(kc[..., :1]), i[:, sl], b[:, sl],
+                        m[:, sl])
+        sc = s[:, sl].transpose(1, 2)                           # (B,H,L)
+        d = sc * torch.einsum("bthx,bhx->bht", qc, n) + P.sum(-1)
+        den = torch.clamp_min(d.abs(), 1.0)
+        u = (dhc * hc).sum(-1).transpose(1, 2)
+        mu = half_at_ties(d.abs(), torch.ones_like(d))     # d den / d|d|
+        dd = -u / den * mu * torch.sign(d)
+        R[:, sl] = (u * (1 - mu)).transpose(1, 2)
+        sd[:, sl] = (sc / den).transpose(1, 2)
+        sdd[:, sl] = (sc * dd).transpose(1, 2)
+        dS = (torch.einsum("bthx,bshx->bhts", dhc, vc) / den[..., None]
+              + dd[..., None]) * D
+        dq[:, sl] = torch.einsum("bhts,bshx->bthx", dS, kc)
+        dk[:, sl] = torch.einsum("bhts,bthx->bshx", dS, qc)
+        dv[:, sl] = torch.einsum("bhts,bthx->bshx", P / den[..., None], dhc)
+        a = sc[..., -1]
+        n = a[..., None] * n + torch.einsum(
+            "bshx,bhs->bhx", kc, w[:, sl].transpose(1, 2))
+    C, n = q.new_zeros((B, H, hd, hd)), q.new_zeros((B, H, hd))
+    for sl in bounds:                        # forward walk: dq's inter part
+        dq[:, sl] += sd[:, sl, :, None] * torch.einsum(
+            "bhxj,bthj->bthx", C, dh[:, sl]) \
+            + sdd[:, sl, :, None] * n[:, None]
+        a = s[:, sl][:, -1]
+        wc = w[:, sl].transpose(1, 2)
+        C = a[..., None, None] * C + torch.einsum(
+            "bshx,bhs,bshj->bhxj", k[:, sl], wc, v[:, sl])
+        n = a[..., None] * n + torch.einsum("bshx,bhs->bhx", k[:, sl], wc)
+    dC, dn = q.new_zeros((B, H, hd, hd)), q.new_zeros((B, H, hd))
+    for sl in reversed(bounds):              # reverse walk: dk's, dv's
+        wc = w[:, sl, :, None]
+        dk[:, sl] += wc * (torch.einsum("bhxj,bshj->bshx", dC, v[:, sl])
+                           + dn[:, None])
+        dv[:, sl] += wc * torch.einsum("bhxj,bshx->bshj", dC, k[:, sl])
+        a = s[:, sl][:, -1]
+        dC = a[..., None, None] * dC + torch.einsum(
+            "bthx,bht,bthj->bhxj", q[:, sl], sd[:, sl].transpose(1, 2),
+            dh[:, sl])
+        dn = a[..., None] * dn + torch.einsum(
+            "bthx,bht->bhx", q[:, sl], sdd[:, sl].transpose(1, 2))
+    Cs = (k * dk).sum(-1)
+    di, df = torch.empty_like(i), torch.empty_like(f)
+    acc = torch.zeros((B, H), dtype=torch.float64, device=q.device)
+    dm = torch.zeros_like(acc)
+    for t in range(S - 1, -1, -1):           # the gates, serially
+        r = R[:, t].double()
+        dA = r - Cs[:, t].double() if t else -acc
+        acc = acc + dA
+        g = dm - r
+        m_prev = m[:, t - 1] if t else torch.full_like(m[:, 0], -torch.inf)
+        da = half_at_ties(f[:, t] + m_prev, i[:, t]).double() * g
+        df[:, t] = (acc + da).to(f.dtype)
+        di[:, t] = ((r - dA) + (g - da)).to(i.dtype)
+        dm = da
+    return dq, dk, dv, di, df

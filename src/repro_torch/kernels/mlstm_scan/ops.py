@@ -14,18 +14,27 @@ chunkwise (three passes: the stabilizer, each chunk's gated Q K^T, then
 the state chunk after chunk); :mod:`.chunked` models it in PyTorch for
 the CPU tests.
 
-It is a ``torch.library`` custom op (``repro_torch::mlstm_scan``) with a
-fake (meta) version, a DTensor rule (every operand sharded alike on the
-batch dim or the head dim (2), or all replicated; never on time) and a
-FLOP count for ``FlopCounterMode`` (``5 B S H hd^2``, the per-block term
-of ``launch/roofline.py``'s recurrent FLOPs). It has no backward yet:
-``models.recurrent.mlstm_block`` calls it only while autograd does not
-record.
+:func:`mlstm_scan_bwd` wraps the backward kernels of the same file (a
+chunkwise backward: the forward's gates pass, n before every chunk, each
+chunk's intra terms, three walks over the chunks for the inter terms of
+dq, dk and dv, and the gates' gradients from per-step sums, serially);
+its launch count is ``mlstm_scan_bwd.launches``. :mod:`.chunked` models
+it too.
+
+Each is a ``torch.library`` custom op (``repro_torch::mlstm_scan``,
+``repro_torch::mlstm_scan_bwd``) with a fake (meta) version, a DTensor
+rule (every operand sharded alike on the batch dim or the head dim (2),
+or all replicated; never on time) and a FLOP count for
+``FlopCounterMode``: ``5 B S H hd^2`` forward, the per-block term of
+``launch/roofline.py``'s recurrent FLOPs, and twice that backward (the
+roofline counts a backward as two forwards, whatever the kernel
+recomputes). The backward op is the forward's autograd, on the saved
+inputs and output ``h``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -33,7 +42,8 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_ref
+from repro_torch.kernels.mlstm_scan.ref import (mlstm_scan_bwd_ref,
+                                                mlstm_scan_ref)
 
 CHUNK = 32                               # steps per chunk: one warp
 TILE = 32                                # columns of C per inter block
@@ -45,6 +55,7 @@ RED_STRIDE = TILE + 8                    # row stride of the partial sums
 GRID_YZ_MAX = 65535
 
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 class MlstmPlan(NamedTuple):
@@ -98,35 +109,50 @@ def scratch_floats(B: int, S: int, H: int) -> int:
     return 4 * n + n * CHUNK
 
 
-def _check(q, k, v, i, f) -> None:
-    ts = (q, k, v, i, f)
+def bwd_scratch_floats(B: int, S: int, H: int, hd: int) -> int:
+    """Floats of the backward's scratch: m, b, s, w, s / den, s dd, R and
+    Cs per step (padded to whole chunks) and n before every chunk."""
+    chunks = -(-S // CHUNK)
+    return 8 * B * H * chunks * CHUNK + B * H * chunks * hd
+
+
+def _check(op: str, q, k, v, i, f, *wide) -> None:
+    """q, k, v and ``wide`` (B, S, H, hd), i and f (B, S, H), fp32, on one
+    device, contiguous: what the kernels take."""
+    ts = (q, k, v, i, f) + wide
     for t in ts:
         if t.dtype != torch.float32:
-            raise TypeError(f"mlstm_scan takes float32, got {t.dtype}")
+            raise TypeError(f"{op} takes float32, got {t.dtype}")
         if t.device != q.device:
-            raise ValueError(f"mlstm_scan: operands on {q.device} and "
-                             f"{t.device}")
+            raise ValueError(f"{op}: operands on {q.device} and {t.device}")
         if not t.is_contiguous():
-            raise ValueError("mlstm_scan takes contiguous operands")
-    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape \
+            raise ValueError(f"{op} takes contiguous operands")
+    if q.ndim != 4 or any(t.shape != q.shape for t in (k, v) + wide) \
             or i.shape != q.shape[:3] or f.shape != q.shape[:3]:
-        raise ValueError(f"mlstm_scan takes q, k, v (B, S, H, hd) and i, f "
+        raise ValueError(f"{op} takes q, k, v (B, S, H, hd) and i, f "
                          f"(B, S, H), got {[tuple(t.shape) for t in ts]}")
+
+
+def _plan(op: str, q: torch.Tensor) -> MlstmPlan:
+    """The launch plan of a CUDA call, after the device check."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu, not {q.device}")
+    B, S, H, hd = q.shape
+    plan = mlstm_plan(hd)
+    if H > GRID_YZ_MAX or B > GRID_YZ_MAX:
+        raise ValueError(f"{op} grid (tiles, H={H}, B={B}) exceeds CUDA's "
+                         f"limits")
+    return plan
 
 
 @torch.library.custom_op("repro_torch::mlstm_scan", mutates_args=())
 def _mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    _check(q, k, v, i, f)
+    _check("mlstm_scan", q, k, v, i, f)
     if q.device.type == "cpu":
         return mlstm_scan_ref(q, k, v, i, f)
-    if q.device.type != "cuda":
-        raise ValueError(f"mlstm_scan runs on cuda or cpu, not {q.device}")
+    plan = _plan("mlstm_scan", q)
     B, S, H, hd = q.shape
-    plan = mlstm_plan(hd)
-    if H > GRID_YZ_MAX or B > GRID_YZ_MAX:
-        raise ValueError(f"mlstm_scan grid (tiles, H={H}, B={B}) exceeds "
-                         f"CUDA's limits")
     h = torch.empty_like(q)
     scratch = torch.empty(scratch_floats(B, S, H), dtype=torch.float32,
                           device=q.device)
@@ -144,13 +170,70 @@ def _mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_mlstm_scan.register_fake
 def _(q, k, v, i, f):
-    _check(q, k, v, i, f)
+    _check("mlstm_scan", q, k, v, i, f)
     return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::mlstm_scan_bwd", mutates_args=())
+def _mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    i: torch.Tensor, f: torch.Tensor, h: torch.Tensor,
+                    dh: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    _check("mlstm_scan_bwd", q, k, v, i, f, h, dh)
+    if q.device.type == "cpu":
+        return mlstm_scan_bwd_ref(q, k, v, i, f, h, dh)
+    plan = _plan("mlstm_scan_bwd", q)
+    B, S, H, hd = q.shape
+    grads = tuple(torch.empty_like(t) for t in (q, k, v, i, f))
+    scratch = torch.empty(bwd_scratch_floats(B, S, H, hd),
+                          dtype=torch.float32, device=q.device)
+    ts = (q, k, v, i, f, h, dh) + grads
+    vec = hd % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              for t in (q, k, v, h, dh) + grads[:3])
+    fn = build.entry("mlstm_scan", "mlstm_scan_bwd_launch", _BWD_ARGS)
+    with torch.cuda.device(q.device):
+        status = fn(*(t.data_ptr() for t in ts), scratch.data_ptr(), B, S,
+                    H, hd, plan.xw, int(vec),
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(status, "mlstm_scan_bwd")
+    mlstm_scan_bwd.launches += 1
+    return grads
+
+
+@_mlstm_scan_bwd.register_fake
+def _(q, k, v, i, f, h, dh):
+    _check("mlstm_scan_bwd", q, k, v, i, f, h, dh)
+    return tuple(torch.empty_like(t) for t in (q, k, v, i, f))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output)
+
+
+def _backward(ctx, dh):
+    return tuple(torch.ops.repro_torch.mlstm_scan_bwd(
+        *ctx.saved_tensors, dh.contiguous()))
+
+
+_mlstm_scan.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _placements(n_out: int, n_in: int):
+    """Every output and input alike: replicated, or sharded on the batch
+    dim or the head dim (never on time, dim 1)."""
+    return [([p] * n_out, [p] * n_in)
+            for p in (Replicate(), Shard(0), Shard(2))]
 
 
 @register_sharding(torch.ops.repro_torch.mlstm_scan.default)
 def _(q, k, v, i, f):
-    return [([p], [p] * 5) for p in (Replicate(), Shard(0), Shard(2))]
+    return _placements(1, 5)
+
+
+@register_sharding(torch.ops.repro_torch.mlstm_scan_bwd.default)
+def _(q, k, v, i, f, h, dh):
+    return _placements(5, 7)
 
 
 @register_flop_formula(torch.ops.repro_torch.mlstm_scan)
@@ -160,13 +243,30 @@ def _(q_shape, k_shape, v_shape, i_shape, f_shape, out_shape=None,
     return 5 * B * S * H * hd * hd
 
 
+@register_flop_formula(torch.ops.repro_torch.mlstm_scan_bwd)
+def _(q_shape, *shapes, out_shape=None, **kwargs) -> int:
+    B, S, H, hd = q_shape
+    return 10 * B * S * H * hd * hd
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """``h`` (B, S, H, hd) fp32 of the stabilized mLSTM recurrence from
     the zero state; q, k, v (B, S, H, hd) fp32 (k scaled by 1/sqrt(hd)),
     i (B, S, H) the input-gate pre-activation and f (B, S, H) the log
-    forget gate, fp32, all contiguous; hd <= 512. Not differentiable."""
+    forget gate, fp32, all contiguous; hd <= 512. Differentiable in
+    every input (through :func:`mlstm_scan_bwd`)."""
     return torch.ops.repro_torch.mlstm_scan(q, k, v, i, f)
 
 
+def mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i: torch.Tensor, f: torch.Tensor, h: torch.Tensor,
+                   dh: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``(dq, dk, dv, di, df)`` of :func:`mlstm_scan` given its inputs,
+    its output ``h`` and the gradient ``dh`` of ``h`` ((B, S, H, hd)
+    fp32, contiguous)."""
+    return tuple(torch.ops.repro_torch.mlstm_scan_bwd(q, k, v, i, f, h, dh))
+
+
 mlstm_scan.launches = 0
+mlstm_scan_bwd.launches = 0

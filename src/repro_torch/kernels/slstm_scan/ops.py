@@ -11,17 +11,25 @@ local pass per chunk, a serial combine over the chunks, a rerun of each
 chunk from its incoming state); :mod:`.chunked` models it in PyTorch
 for the CPU tests.
 
-It is a ``torch.library`` custom op (``repro_torch::slstm_scan``) with a
-fake (meta) version, a DTensor rule (every operand sharded alike on the
-batch dim or the unit dim (2), or all replicated; never on time) and a
-FLOP count for ``FlopCounterMode`` (``12 B S d``, the per-block term of
-``launch/roofline.py``'s recurrent FLOPs). It has no backward yet:
-``models.recurrent.slstm_block`` calls it only while autograd does not
-record.
+:func:`slstm_scan_bwd` wraps the backward kernels of the same file (the
+same chunked scan run backwards in time, in chunks of ``BWD_CHUNK``
+steps: the forward's local pass and combine for the chunks' incoming
+states, a local pass giving each chunk's affine map of the carried
+gradients, a serial combine over the chunks from the last, a rerun
+writing the gradients); its launch count is ``slstm_scan_bwd.launches``.
+
+Each is a ``torch.library`` custom op (``repro_torch::slstm_scan``,
+``repro_torch::slstm_scan_bwd``) with a fake (meta) version, a DTensor
+rule (every operand sharded alike on the batch dim or the unit dim (2),
+or all replicated; never on time) and a FLOP count for
+``FlopCounterMode``: ``12 B S d`` forward, the per-block term of
+``launch/roofline.py``'s recurrent FLOPs, and twice that backward. The
+backward op is the forward's autograd, on the saved inputs.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -29,32 +37,44 @@ from torch.distributed.tensor.experimental import register_sharding
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
+                                                slstm_scan_ref)
 
 CHUNK = 64                               # steps per chunk of the kernel
+BWD_CHUNK = 16                           # steps per chunk of the backward
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def _check(z, i, f, o) -> None:
-    ts = (z, i, f, o)
+def _check(op: str, *ts: torch.Tensor) -> None:
+    """Every operand (B, S, d) fp32 of one shape, on one device,
+    contiguous: what the kernels take."""
+    z = ts[0]
     for t in ts:
         if t.dtype != torch.float32:
-            raise TypeError(f"slstm_scan takes float32, got {t.dtype}")
+            raise TypeError(f"{op} takes float32, got {t.dtype}")
         if t.ndim != 3 or t.shape != z.shape:
-            raise ValueError(f"slstm_scan takes (B, S, d) operands of one "
+            raise ValueError(f"{op} takes (B, S, d) operands of one "
                              f"shape, got {[tuple(x.shape) for x in ts]}")
         if t.device != z.device:
-            raise ValueError(f"slstm_scan: operands on {z.device} and "
-                             f"{t.device}")
+            raise ValueError(f"{op}: operands on {z.device} and {t.device}")
         if not t.is_contiguous():
-            raise ValueError("slstm_scan takes contiguous operands")
+            raise ValueError(f"{op} takes contiguous operands")
+
+
+def bwd_scratch_floats(B: int, S: int, d: int) -> int:
+    """Floats of the backward's scratch: 19 planes of B x chunks x d (the
+    forward's incoming states and chunk sums, the chunks' maps and their
+    end carries); none for one chunk."""
+    chunks = -(-S // BWD_CHUNK)
+    return 19 * B * chunks * d if chunks > 1 else 0
 
 
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
 def _slstm_scan(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
                 o: torch.Tensor) -> torch.Tensor:
-    _check(z, i, f, o)
+    _check("slstm_scan", z, i, f, o)
     if z.device.type == "cpu":
         return slstm_scan_ref(z, i, f, o)
     if z.device.type != "cuda":
@@ -76,13 +96,68 @@ def _slstm_scan(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
 
 @_slstm_scan.register_fake
 def _(z, i, f, o):
-    _check(z, i, f, o)
+    _check("slstm_scan", z, i, f, o)
     return torch.empty_like(z)
+
+
+@torch.library.custom_op("repro_torch::slstm_scan_bwd", mutates_args=())
+def _slstm_scan_bwd(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
+                    o: torch.Tensor, dh: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    _check("slstm_scan_bwd", z, i, f, o, dh)
+    if z.device.type == "cpu":
+        return slstm_scan_bwd_ref(z, i, f, o, dh)
+    if z.device.type != "cuda":
+        raise ValueError(f"slstm_scan_bwd runs on cuda or cpu, not "
+                         f"{z.device}")
+    grads = tuple(torch.empty_like(z) for _ in range(4))
+    B, S, d = z.shape
+    scratch = torch.empty(bwd_scratch_floats(B, S, d), dtype=torch.float32,
+                          device=z.device)
+    fn = build.entry("slstm_scan", "slstm_scan_bwd_launch", _BWD_ARGS)
+    with torch.cuda.device(z.device):
+        status = fn(*(t.data_ptr() for t in (z, i, f, o, dh) + grads),
+                    scratch.data_ptr(), B, S, d,
+                    torch.cuda.current_stream(z.device).cuda_stream)
+    build.check(status, "slstm_scan_bwd")
+    slstm_scan_bwd.launches += 1
+    return grads
+
+
+@_slstm_scan_bwd.register_fake
+def _(z, i, f, o, dh):
+    _check("slstm_scan_bwd", z, i, f, o, dh)
+    return tuple(torch.empty_like(z) for _ in range(4))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dh):
+    return tuple(torch.ops.repro_torch.slstm_scan_bwd(*ctx.saved_tensors,
+                                                      dh.contiguous()))
+
+
+_slstm_scan.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _placements(n_out: int, n_in: int):
+    """Every output and input alike: replicated, or sharded on the batch
+    dim or the unit dim (never on time, dim 1)."""
+    return [([p] * n_out, [p] * n_in)
+            for p in (Replicate(), Shard(0), Shard(2))]
 
 
 @register_sharding(torch.ops.repro_torch.slstm_scan.default)
 def _(z, i, f, o):
-    return [([p], [p] * 4) for p in (Replicate(), Shard(0), Shard(2))]
+    return _placements(1, 4)
+
+
+@register_sharding(torch.ops.repro_torch.slstm_scan_bwd.default)
+def _(z, i, f, o, dh):
+    return _placements(4, 5)
 
 
 @register_flop_formula(torch.ops.repro_torch.slstm_scan)
@@ -91,12 +166,28 @@ def _(z_shape, i_shape, f_shape, o_shape, out_shape=None, **kwargs) -> int:
     return 12 * B * S * d
 
 
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def _(z_shape, *shapes, out_shape=None, **kwargs) -> int:
+    B, S, d = z_shape
+    return 24 * B * S * d
+
+
 def slstm_scan(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
                o: torch.Tensor) -> torch.Tensor:
     """``h`` (B, S, d) fp32 of the sLSTM recurrence from the zero state;
     ``z``, ``i``, ``f`` (forget bias included), ``o`` the (B, S, d) fp32
-    gate pre-activations, contiguous. Not differentiable."""
+    gate pre-activations, contiguous. Differentiable in every input
+    (through :func:`slstm_scan_bwd`)."""
     return torch.ops.repro_torch.slstm_scan(z, i, f, o)
 
 
+def slstm_scan_bwd(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
+                   o: torch.Tensor, dh: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """``(dz, di, df, do)`` of :func:`slstm_scan` given its inputs and the
+    gradient ``dh`` of its output (all (B, S, d) fp32, contiguous)."""
+    return tuple(torch.ops.repro_torch.slstm_scan_bwd(z, i, f, o, dh))
+
+
 slstm_scan.launches = 0
+slstm_scan_bwd.launches = 0

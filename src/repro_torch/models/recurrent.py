@@ -2,32 +2,28 @@
 xLSTM's mLSTM / sLSTM cells.
 
 Training/prefill runs each recurrence over the whole sequence in fp32
-through one op per block (``repro_torch.kernels``): ``rglru_scan``
-(differentiable; its backward is the ``rglru_scan_bwd`` op),
-``mlstm_scan`` and ``slstm_scan``. Each launches a CUDA kernel on CUDA
+through one op per block (``repro_torch.kernels``): ``rglru_scan``,
+``mlstm_scan`` and ``slstm_scan``, each differentiable through its
+backward op (``rglru_scan_bwd``, ``mlstm_scan_bwd``, ``slstm_scan_bwd``),
+with or without autograd recording. Each launches a CUDA kernel on CUDA
 tensors and runs the sequential loop over time (the kernel's plain
 version) on CPU tensors. The JAX package's ``lax.associative_scan``
 (RG-LRU) and two-level checkpointed ``lax.scan`` (``chunked_scan``)
 compute the same recurrences (the associative scan in another
 association order, so RG-LRU outputs differ from it by fp32 rounding
 only: within 1e-5 of the reference per block in fp32,
-tests/test_torch_family_modules.py).
+tests/test_torch_family_modules.py). ``chunked_scan`` itself stays as
+the reference's loop for the tests that hold it to the blocks.
 
-The mLSTM and sLSTM ops have no backward yet. While autograd records
-(grad mode on and an input of the scan requiring grad), ``mlstm_block``
-and ``slstm_block`` therefore run the loop of ``chunked_scan`` instead,
-whose 128-step chunks are checkpointed as the reference's are: a
-dispatch on grad mode, not a fallback. Decode is a single state update
-- this is what makes the state O(1) in context for these archs - and
-equals the sequential loop's step. Every update keeps the reference's
-fp32 / compute-dtype casts.
+Decode is a single state update - this is what makes the state O(1) in
+context for these archs - and equals the sequential loop's step. Every
+update keeps the reference's fp32 / compute-dtype casts.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.mlstm_scan.ops import mlstm_scan
@@ -43,6 +39,12 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.softplus is logaddexp(x, 0); F.softplus turns linear above
     # its threshold
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.log_sigmoid is -softplus(-x); DTensor differentiates this
+    # (it has no rule for F.logsigmoid's backward)
+    return -_softplus(-x)
 
 
 _SCAN_CHUNK = 128
@@ -78,11 +80,6 @@ def chunked_scan(f, init, xs, chunk: int = _SCAN_CHUNK):
         carry, y = checkpoint(_scan, f, carry, xc, use_reentrant=False)
         ys.append(y)
     return carry, torch.cat(ys)
-
-
-def _records(*ts: torch.Tensor) -> bool:
-    """Whether autograd records an op on ``ts``."""
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -219,21 +216,10 @@ def mlstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.hd
     dt = x.dtype
-    dev = x.device
     q, k, v, i, f, o = _mlstm_qkv(p, x, cfg)
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    f32 = F.logsigmoid(f)
-    if _records(q32, k32, v32, i, f32):
-        init = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                            device=dev),
-                torch.zeros((B, H, hd), dtype=torch.float32, device=dev),
-                torch.full((B, H), -torch.inf, dtype=torch.float32,
-                           device=dev))
-        _, hs = chunked_scan(_mlstm_step, init, tuple(
-            t.transpose(0, 1) for t in (q32, k32, v32, i, f32)))
-        hs = hs.transpose(0, 1)
-    else:
-        hs = mlstm_scan(*(t.contiguous() for t in (q32, k32, v32, i, f32)))
+    hs = mlstm_scan(*(t.contiguous()
+                      for t in (q32, k32, v32, i, _log_sigmoid(f))))
     h = hs.to(dt).reshape(B, S, H * hd)
     return (h * o) @ p["w_out"].to(dt)
 
@@ -255,7 +241,7 @@ def mlstm_decode(p, x, cfg: ModelConfig, state
     q, k, v, i, f, o = _mlstm_qkv(p, x, cfg)
     carry = (state["C"], state["n"], state["m"])
     inp = (q[:, 0].float(), k[:, 0].float(), v[:, 0].float(), i[:, 0],
-           F.logsigmoid(f[:, 0]))
+           _log_sigmoid(f[:, 0]))
     (C, n, m), h = _mlstm_step(carry, inp)
     h = h.to(dt).reshape(B, 1, -1)
     out = (h * o) @ p["w_out"].to(dt)
@@ -290,20 +276,9 @@ def _slstm_pre(p, x):
 
 
 def slstm_block(p, x, cfg: ModelConfig) -> torch.Tensor:
-    B, S, d = x.shape
     dt = x.dtype
-    dev = x.device
     z, i, f, o = _slstm_pre(p, x)
-    if _records(z, i, f, o):
-        init = (torch.zeros((B, d), dtype=torch.float32, device=dev),
-                torch.zeros((B, d), dtype=torch.float32, device=dev),
-                torch.full((B, d), -torch.inf, dtype=torch.float32,
-                           device=dev))
-        _, hs = chunked_scan(_slstm_step, init,
-                             tuple(t.transpose(0, 1) for t in (z, i, f, o)))
-        hs = hs.transpose(0, 1)
-    else:
-        hs = slstm_scan(*(t.contiguous() for t in (z, i, f, o)))
+    hs = slstm_scan(*(t.contiguous() for t in (z, i, f, o)))
     h = hs.to(dt)
     return h @ p["w_out"].to(dt)
 

@@ -12,6 +12,11 @@ of one, and long.
   spikes make the clamp bind.
 * sLSTM: the first chunk equals the loop bit for bit (it starts from the
   same zero state with the same step); the rest within SCAN_RTOL.
+* The backward kernels' algorithms (``mlstm_chunked_bwd``,
+  ``slstm_chunked_bwd``) against the plain backwards (``ref.py``) within
+  BWD_RTOL of each gradient's largest entry, at forget biases +3 (the
+  blocks' init), +6 and +10 (long memory), the mLSTM also where its clamp
+  binds; at S = 1 the gate gradients are 0 exactly, as the loop's are.
 """
 import numpy as np
 import pytest
@@ -19,11 +24,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.mlstm_scan.chunked import (  # noqa: E402
-    mlstm_chunk_gates, mlstm_chunked)
+    mlstm_chunk_gates, mlstm_chunked, mlstm_chunked_bwd)
 from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
-    mlstm_scan_exact, mlstm_step)
-from repro_torch.kernels.slstm_scan.chunked import slstm_chunked  # noqa: E402
-from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref  # noqa: E402
+    mlstm_scan_bwd_ref, mlstm_scan_exact, mlstm_scan_ref, mlstm_step)
+from repro_torch.kernels.slstm_scan.chunked import (  # noqa: E402
+    slstm_chunked, slstm_chunked_bwd)
+from repro_torch.kernels.slstm_scan.ref import (  # noqa: E402
+    slstm_scan_bwd_ref, slstm_scan_ref)
 
 CHUNKS = [16, 32, 64]
 LENGTHS = ["1", "L-1", "L", "L+1", "200", "1024"]
@@ -174,3 +181,56 @@ def test_slstm_chunked_matches_the_loop(chunk, kind):
     first = min(chunk, S)
     assert torch.equal(h[:, :first], h_ref[:, :first])
     assert _rel(h, h_ref) <= SCAN_RTOL
+
+
+# the backward kernels' algorithms against the plain backwards, relative
+# to each gradient's largest entry (tests/test_torch_gpu.py's BWD_RTOL,
+# which holds the kernels on the card): the chunkwise products, the
+# gates' reverse sums and the chunked carries run in another order
+BWD_RTOL = 2e-5
+BWD_CHUNKS = {"mlstm": 32, "slstm": 16}           # the kernels' chunks
+BWD_LENGTHS = ["1", "L-1", "L+1", "200"]
+FORGET_BIASES = [3.0, 6.0, 10.0]
+
+
+def _grads_close(got, ref):
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        err = float((a - b).abs().max())
+        assert err <= BWD_RTOL * float(b.abs().max()), (err, float(
+            b.abs().max()))
+
+
+@pytest.mark.parametrize("kind", BWD_LENGTHS)
+@pytest.mark.parametrize("bias", FORGET_BIASES)
+def test_mlstm_chunked_bwd_matches_the_plain_backward(bias, kind):
+    S = _length(kind, BWD_CHUNKS["mlstm"])
+    rng = np.random.default_rng(int(bias) * 1000 + S)
+    args = _mlstm_inputs(rng, S, forget_bias=bias)
+    h = mlstm_scan_ref(*args)
+    dh = _rand(rng, *h.shape)
+    got = mlstm_chunked_bwd(*args, h, dh, BWD_CHUNKS["mlstm"])
+    _grads_close(got, mlstm_scan_bwd_ref(*args, h, dh))
+    if S == 1:
+        assert not got[3].any() and not got[4].any()
+
+
+def test_mlstm_chunked_bwd_where_the_clamp_binds():
+    rng = np.random.default_rng(7)
+    args = _mlstm_inputs(rng, 200, spikes=6.0)
+    h, den = mlstm_chunked(*args, BWD_CHUNKS["mlstm"])
+    assert float((den.abs() < 1).float().mean()) > 0.5
+    dh = _rand(rng, *h.shape)
+    _grads_close(mlstm_chunked_bwd(*args, h, dh, BWD_CHUNKS["mlstm"]),
+                 mlstm_scan_bwd_ref(*args, h, dh))
+
+
+@pytest.mark.parametrize("kind", BWD_LENGTHS)
+@pytest.mark.parametrize("bias", FORGET_BIASES)
+def test_slstm_chunked_bwd_matches_the_plain_backward(bias, kind):
+    S = _length(kind, BWD_CHUNKS["slstm"])
+    rng = np.random.default_rng(int(bias) * 1000 + S + 1)
+    z, i, f, o, dh = (_rand(rng, 2, S, 24) for _ in range(5))
+    f = f + bias
+    _grads_close(slstm_chunked_bwd(z, i, f, o, dh, BWD_CHUNKS["slstm"]),
+                 slstm_scan_bwd_ref(z, i, f, o, dh))

@@ -2,11 +2,11 @@
 a fake world in a subprocess (its own, so that tests/test_torch_
 dryrun.py's fixture keeps its time).
 
-A reduced recurrentgemma_2b train cell and prefill cell and a reduced
-xlstm_1_3b prefill cell (``specs.dryrun_config`` on a fake (data, model)
-= (2, 4) mesh) each trace with status ``ok``: their scans run as one op
-per block (``repro_torch::{rglru,mlstm,slstm}_scan``, with the RG-LRU's
-backward op in training) through DTensor's sharding rules. Per-device
+Reduced recurrentgemma_2b and xlstm_1_3b train and prefill cells
+(``specs.dryrun_config`` on a fake (data, model) = (2, 4) mesh) each
+trace with status ``ok``: their scans run as one op per block
+(``repro_torch::{rglru,mlstm,slstm}_scan``, with each scan's backward
+op in training) through DTensor's sharding rules. Per-device
 argument bytes are the sum of the rules' local shard shapes, and the
 FLOPs include the ops' registered counts: the cell traced without them
 counts exactly the scans' share less (per block 12 B S d for RG-LRU and
@@ -39,7 +39,8 @@ from repro_torch.parallel import sharding as sh
 from repro_torch.tree import flatten_with_path
 
 SCANS = [getattr(torch.ops.repro_torch, n) for n in
-         ("rglru_scan", "rglru_scan_bwd", "mlstm_scan", "slstm_scan")]
+         ("rglru_scan", "rglru_scan_bwd", "mlstm_scan", "slstm_scan",
+          "mlstm_scan_bwd", "slstm_scan_bwd")]
 
 
 def rules_bytes(cfg, seq, batch, kind, rec, mesh):
@@ -83,6 +84,7 @@ dryrun.start_fake_world(8)
 mesh = make_test_mesh(data=2, model=4, device="cpu")
 for arch, kind in (("recurrentgemma_2b", "train"),
                    ("recurrentgemma_2b", "prefill"),
+                   ("xlstm_1_3b", "train"),
                    ("xlstm_1_3b", "prefill")):
     cfg = sp.dryrun_config(reduced(get_config(arch)), mesh)
     seq, batch = 64, 16
@@ -101,7 +103,7 @@ print(json.dumps(out))
 """
 
 CELLS = ["recurrentgemma_2b:train", "recurrentgemma_2b:prefill",
-         "xlstm_1_3b:prefill"]
+         "xlstm_1_3b:train", "xlstm_1_3b:prefill"]
 
 
 @pytest.fixture(scope="module")

@@ -8,9 +8,10 @@ version; the CUDA kernels are held to these on the card
   nothing); the RG-LRU's plain backward equals autograd through that
   loop bit for bit.
 * Each block equals the JAX package's block within ACT_ATOL, with and
-  without autograd recording; the RG-LRU's registered backward gives
-  gradients of ``a``, ``b`` and the block's params within 1e-4 (of each
-  leaf's largest entry) of ``jax.grad``.
+  without autograd recording (its op either way); the RG-LRU's
+  registered backward gives gradients of ``a``, ``b`` and the block's
+  params within 1e-4 (of each leaf's largest entry) of ``jax.grad``
+  (the xLSTM ops' backward: tests/test_torch_scan_grads.py).
 * ``torch.library.opcheck`` passes on every op; ``mlstm_plan`` covers
   every head width it takes, within the card's shared memory, with
   strides whose tensor-core fragment reads are free of bank conflicts.
@@ -59,7 +60,8 @@ def _rand(rng, *shape):
 
 def _counts():
     return (rops.rglru_scan.launches, rops.rglru_scan_bwd.launches,
-            mops.mlstm_scan.launches, sops.slstm_scan.launches)
+            mops.mlstm_scan.launches, sops.slstm_scan.launches,
+            mops.mlstm_scan_bwd.launches, sops.slstm_scan_bwd.launches)
 
 
 # -- today's loops, as the port's blocks ran them before the ops ------------
@@ -236,10 +238,9 @@ BLOCKS = [("recurrentgemma_2b", "rglru"), ("xlstm_1_3b", "mlstm"),
 @pytest.mark.parametrize("arch,kind", BLOCKS, ids=[k for _, k in BLOCKS])
 @pytest.mark.parametrize("S", LENGTHS)
 def test_blocks_match_jax_and_todays_loop(arch, kind, S):
-    """Without autograd the block runs its op, with autograd recording
-    (params requiring grad) RG-LRU still does while mLSTM and sLSTM run
-    ``chunked_scan``: every way equals the reference within ACT_ATOL and
-    the two ways equal each other bit for bit."""
+    """The block runs its op with autograd recording (params requiring
+    grad) and without: both ways equal the reference within ACT_ATOL and
+    each other bit for bit, and neither launches a kernel on the CPU."""
     cfg_j, cfg_t, mj, mt, x = _block_case(arch, kind, S, seed=S)
     ref = getattr(jax_rec, f"{kind}_block")(mj, jnp.asarray(x), cfg_j)
     block = getattr(recurrent, f"{kind}_block")
@@ -252,6 +253,7 @@ def test_blocks_match_jax_and_todays_loop(arch, kind, S):
     recorded = block(live, _t(x), cfg_t)
     assert recorded.grad_fn is not None
     assert torch.equal(recorded.detach(), ours)
+    assert _counts() == n0
 
 
 def _jax_rglru_scan(a, b):
@@ -308,17 +310,23 @@ def _opcheck_cases():
     rng = np.random.default_rng(50)
     a, b = _gates(rng, 2, 7, 8)
     h = rglru_scan_ref(a, b)
+    m = _mlstm_inputs(rng, 2, 7, 2, 4)
+    zifo = tuple(_rand(rng, 2, 7, 8) for _ in range(4))
     return [
         ("rglru_scan", (a, b)),
         ("rglru_scan", (a.clone().requires_grad_(),
                         b.clone().requires_grad_())),
         ("rglru_scan_bwd", (a, h, _rand(rng, 2, 7, 8))),
-        ("mlstm_scan", _mlstm_inputs(rng, 2, 7, 2, 4)),
-        ("slstm_scan", tuple(_rand(rng, 2, 7, 8) for _ in range(4))),
+        ("mlstm_scan", m),
+        ("slstm_scan", zifo),
+        ("mlstm_scan", tuple(t.clone().requires_grad_() for t in m)),
+        ("mlstm_scan_bwd", m + (mlstm_scan_ref(*m), _rand(rng, 2, 7, 2, 4))),
+        ("slstm_scan", tuple(t.clone().requires_grad_() for t in zifo)),
+        ("slstm_scan_bwd", zifo + (_rand(rng, 2, 7, 8),)),
     ]
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(9))
 def test_opcheck(case):
     name, args = _opcheck_cases()[case]
     op = getattr(torch.ops.repro_torch, name).default
