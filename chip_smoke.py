@@ -156,9 +156,10 @@ H100; the kernels are built for sm_90a). Phases:
      and backward against float64 given the fp32 loop's m
      (``ref.mlstm_scan_exact``, ``ref.mlstm_scan_bwd_exact``), the
      backward no farther from it than the larger of 2e-5 and the fp32
-     plain backward, and the forward at +10 over 8 seeds of the draw;
-     each kernel timed at B=2, S=4096 by CUDA events and torch.profiler
-     beside its bound and its plain version. Each path with every
+     plain backward, and both at +10 over 8 seeds of the draw (printed,
+     the backward's beside the forward's); each kernel timed at B=2,
+     S=4096 by CUDA events and torch.profiler beside its bound and its
+     plain version. Each path with every
      launch count set to 0 just before and read just after:
      recurrentgemma_2b at full width (26 layers, bf16, unscanned),
      ``lm.forward`` at B=2, S=4096 without autograd, one ``rglru_scan``
@@ -2777,17 +2778,23 @@ def scan_bound_ms(kind: str, shape) -> tuple:
     return max(b, o) * 1e3, ("bytes" if b >= o else "operations")
 
 
-def mlstm_tensor_bound_ms(shape, chunk: int = 32) -> float:
+def mlstm_tensor_bound_ms(shape, chunk: int = 32,
+                          backward: bool = False) -> float:
     """A second bound of ``mlstm_scan``, for its chunkwise design rather
     than the model's count: per (row, head) and chunk of L steps, Q C and
     C's update (2 L hd^2 operations each) and Q K^T (2 L^2 hd) on the
     tensor cores in 3xTF32 (three TF32 products each) at the TF32 rate,
-    and P V (2 L^2 hd) on the FMA units at the fp32 rate."""
+    and P V (2 L^2 hd) on the FMA units at the fp32 rate. ``backward``:
+    ``mlstm_scan_bwd``'s, counted the same way: three walks of a product
+    and an update each (6 times 2 L hd^2) and the intra's Q K^T and dH
+    V^T (2 times 2 L^2 hd) on the tensor cores, dS K, dS^T Q and (P /
+    den)^T dH (3 times 2 L^2 hd) on the FMA units."""
     B, S, H, hd = shape
     steps = B * H * S
-    tensor = 3 * steps * (4 * hd * hd + 2 * chunk * hd)
+    walks, intra, fma = (3, 2, 3) if backward else (1, 1, 1)
+    tensor = 3 * steps * (walks * 4 * hd * hd + intra * 2 * chunk * hd)
     return (tensor / TF32_OPS_PER_S
-            + steps * 2 * chunk * hd / FP32_OPS_PER_S) * 1e3
+            + steps * fma * 2 * chunk * hd / FP32_OPS_PER_S) * 1e3
 
 
 def scan_parity(out: dict) -> None:
@@ -2910,7 +2917,7 @@ def scan_long_memory_bwd(rows: dict, gen) -> None:
     of its plain version; the mLSTM's against ``mlstm_scan_bwd_exact``
     (float64 given the fp32 loop's m), no farther from it than the larger
     of BWD_RTOL and the fp32 plain backward's own distance, both
-    printed."""
+    printed; then the mLSTM's seed sweep at +10 (``mlstm_bwd_seed_sweep``)."""
     from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_exact
     names = {"mlstm_scan_bwd": "q k v i f", "slstm_scan_bwd": "z i f o"}
     for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
@@ -2946,6 +2953,36 @@ def scan_long_memory_bwd(rows: dict, gen) -> None:
             rows[f"{kind} +{bias}"] = row
             del args, got, ref
             exact = None
+    mlstm_bwd_seed_sweep(rows)
+
+
+def mlstm_bwd_seed_sweep(rows: dict) -> None:
+    """``mlstm_scan_bwd`` at full width, S = 4096 and forget bias +10 over
+    LONG_MEMORY_SEEDS draws (the forward's sweep's seeds): each
+    gradient's distance from ``mlstm_scan_bwd_exact`` over its largest
+    |entry|, printed beside the forward's sweep (not a gate)."""
+    import torch
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_exact
+    kern, _ = scan_fns("mlstm_scan_bwd")
+    bias, sweep = LONG_MEMORY_BIASES[-1], []
+    for seed in range(LONG_MEMORY_SEEDS):
+        args = scan_inputs("mlstm_scan_bwd",
+                           scan_shapes("mlstm_scan_bwd", SCAN_S)[1],
+                           torch.Generator(device="cuda").manual_seed(seed),
+                           forget_bias=bias)
+        q, k, v, i, f, _, dh = args
+        got = kern(*args)
+        exact = mlstm_scan_bwd_exact(q, k, v, i, f, dh)
+        sweep.append({name: float((a.double() - e).abs().max())
+                      / float(e.abs().max())
+                      for name, a, e in zip("qkvif", got, exact)})
+        del args, got, exact
+    worst = {name: max(d[name] for d in sweep) for name in "qkvif"}
+    print(f"[scan] mlstm_scan_bwd forget bias +{bias} over seeds 0-"
+          f"{LONG_MEMORY_SEEDS - 1} of the draw, each gradient's distance "
+          f"from mlstm_scan_bwd_exact over its largest |entry| (printed, "
+          f"not held): {sweep!r}; largest per gradient {worst!r}")
+    rows[f"mlstm_scan_bwd +{bias} seeds"] = sweep
 
 
 def clamp_share(q, k, i, f) -> float:
@@ -2984,8 +3021,9 @@ def scan_timing(card: str, out: dict) -> None:
         bound, by = scan_bound_ms(kind, shape)
         rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                           bound_by=by, shape=list(shape))
-        if kind == "mlstm_scan":
-            rows[kind]["bound_ms_3xtf32"] = mlstm_tensor_bound_ms(shape)
+        if kind in ("mlstm_scan", "mlstm_scan_bwd"):
+            rows[kind]["bound_ms_3xtf32"] = mlstm_tensor_bound_ms(
+                shape, backward=kind == "mlstm_scan_bwd")
         print(f"[scan] {kind} {shape}: ms={ms!r} plain_ms={plain_ms!r} "
               f"bound_ms={bound!r} ({by}; chunkwise in 3xTF32: "
               f"{rows[kind].get('bound_ms_3xtf32')!r}); card {card}")
@@ -3078,8 +3116,9 @@ def long_forward(cfg, params, toks, label: str, card: str) -> tuple:
 def scan_kernel_parts(prof: dict) -> dict:
     """Device ms of each CUDA kernel of the scans in a profile, by its
     name (an op's kernels share the op's prefix: ``mlstm_scan_fwd_gates``,
-    ``_intra``, ``_inter``; ``slstm_scan_fwd_local``, ``_combine``,
-    ``_apply``)."""
+    ``_intra``, ``_inter``; ``mlstm_scan_bwd_gates``, ``_nsum``,
+    ``_ncombine``, ``_intra``, ``_walk``, ``_dots``, ``_dgates``;
+    ``slstm_scan_fwd_local``, ``_combine``, ``_apply``)."""
     parts: dict = {}
     for name, ms in prof["by_name"].items():
         for k in SCAN_KERNELS:
@@ -3178,7 +3217,9 @@ def recurrent_train_child(arch: str) -> int:
     compute, fp32 params, scanned, remat; AdamW), RG_TRAIN_STEPS Trainer
     steps at B=2, S=4096, in a process of its own (recurrentgemma's step
     peaks at ~78 GB of the card's 80). Prints one JSON line: the launches
-    of the steps (counts set to 0 just before), losses, step times, peak
+    of the steps (counts set to 0 just before), losses, step times (and
+    the host's time inside each step function before the loss is read,
+    which bounds the step where the device waits on the host), peak
     memory, and a profiled step's busy time and scan device times."""
     import numpy as np
     import torch
@@ -3199,13 +3240,15 @@ def recurrent_train_child(arch: str) -> int:
                 device="cuda")
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in _leaves(t.params))
-    events = []
+    events, enqueue = [], []
     step_fn = t._step_fn
 
     def timed_step(*a):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
+        t0 = time.perf_counter()
         r = step_fn(*a)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
         end.record()
         events.append((start, end))
         return r
@@ -3221,6 +3264,7 @@ def recurrent_train_child(arch: str) -> int:
                losses=[m["loss"] for m in t.metrics_log],
                host_ms=[x * 1e3 for x in t.step_times],
                event_ms=[s.elapsed_time(e) for s, e in events],
+               enqueue_ms=enqueue,
                peak_bytes=torch.cuda.max_memory_allocated(),
                total_bytes=torch.cuda.get_device_properties(0).total_memory,
                launches=launches,
@@ -3270,7 +3314,9 @@ def recurrent_train(arch: str, card: str, out: dict) -> None:
           f"params, {rec['optimizer']}, remat={rec['remat']}, scan_layers="
           f"{rec['scan_layers']}), {steps} Trainer steps at B={SCAN_B} "
           f"S={SCAN_S}: losses {rec['losses']}; host-clock step ms "
-          f"{rec['host_ms']}; CUDA-event step ms {rec['event_ms']} "
+          f"{rec['host_ms']} (of which the host's time in the step "
+          f"function, no synchronize: {rec['enqueue_ms']}); CUDA-event "
+          f"step ms {rec['event_ms']} "
           f"({tokens / (rec['event_ms'][-1] * 1e-3)!r} tokens/s at the "
           f"last); max_memory_allocated {rec['peak_bytes']} of "
           f"{rec['total_bytes']} bytes; launches {rec['launches']} "

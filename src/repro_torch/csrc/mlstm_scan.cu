@@ -823,18 +823,25 @@ extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
 // Design. In a chunk the state is a sum of decayed inputs: C_t = sum_s
 // D_ts k_s v_s^T, log D_ts = F_t - F_s + i_s - m_t (F the sum of f), so the
 // backward is that of P_ts = D_ts (q_t . k_s) plus the gates through log D.
-// Given m (the forward's gates pass, rerun), eight kernels:
+// Given m (the forward's gates pass, rerun), seven kernels, nine launches:
 //  1. mlstm_scan_bwd_gates, the forward's gates pass again: m, b, s, w;
-//  2. mlstm_scan_bwd_nprev, a thread per (row, head, column x): n before
-//     every chunk (n <- s_e n + K^T w, as the forward builds it);
-//  3. mlstm_scan_bwd_intra, a block per (chunk, head, row): Q K^T and dH
-//     V^T; d_t = s_t (q_t . n_prev) + rowsum(P), den, dd_t = -(dh_t . h_t)
-//     / den d den/d d; writes dq = dS K, dk = dS^T Q, dv = (P / den)^T dH
-//     (dS = (dH V^T / den + dd) ⊙ D), and per step s / den, s dd and R_t =
-//     (dh_t . h_t)(1 - d den/d|d|), the row sum of G = dP ⊙ P (0 where the
-//     clamp does not bind);
+//  2. n before every chunk, in two passes: mlstm_scan_bwd_nsum, a block per
+//     (chunk, head, row), all chunks at once, writes the chunk's K^T w;
+//     mlstm_scan_bwd_ncombine, a thread per (row, head, column x), runs
+//     n_c = s_e n_{c-1} + (K^T w)_{c-1} over the chunks in place. n rounds
+//     as the forward's does: the chunk's sum formed apart, one add a chunk;
+//  3. mlstm_scan_bwd_intra, a block of 8 warps per (chunk, head, row): the
+//     chunk's q, k and dh staged once in shared memory (hd-slices by
+//     cp.async, the next slice loading while this one is summed), v a slice
+//     at a time; warps 0-3 form Q K^T and warps 4-7 dH V^T, a 16 x 16
+//     quarter each, on the tensor cores. Then d_t = s_t (q_t . n_prev) +
+//     rowsum(P), den, dd_t = -(dh_t . h_t) / den d den/d d (both dots on
+//     the FMA units, h read once); writes dq = dS K, dk = dS^T Q, dv = (P /
+//     den)^T dH (dS = (dH V^T / den + dd) ⊙ D) from the staged chunk, and
+//     per step s / den, s dd and R_t = (dh_t . h_t)(1 - d den/d|d|), the
+//     row sum of G = dP ⊙ P (0 where the clamp does not bind);
 //  4-6. mlstm_scan_bwd_walk, one generic kernel run three times: a block per
-//     (32 rows of a hd x hd state M, head, row) walks the chunks, each step
+//     (32 rows of a hd x hd state M, head, row) walks the chunks, each
 //     adding out_t[r] += alpha_t (M y_t)[r] + beta_t nv[r] for the chunk's
 //     steps, then M <- s_e M + X^T diag(gamma) Z and nv <- s_e nv + X^T
 //     gamma_n. Forward, M = C (rows of C): dq_t += (s_t / den_t) C dh_t +
@@ -843,10 +850,18 @@ extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
 //     and M = dC^T (rows of dC^T): dv_s += w_s dC^T k_s. Each sum a walk
 //     forms runs over all of M's columns, so every output is the block's
 //     own: no partial sums leave a block, and no state is stored (the
-//     forward walk rebuilds C). Warp w owns columns [w XW, (w + 1) XW) of
-//     M and the same columns of the chunk's y and z, lane r row r of M (in
-//     registers); the warps' partial sums meet once a chunk in shared
-//     memory.
+//     forward walk rebuilds C; storing C at every chunk boundary would take
+//     1.07 GB at xlstm_1_3b, B = 2, S = 4096). It is the forward's inter
+//     kernel with y for q, z for k and diag(gamma) X for diag(w) V: warp w
+//     owns columns [w XW, (w + 1) XW) of M, kept in registers as the
+//     accumulator tiles of the update (M^T: the warp's columns x the 32
+//     rows) and copied to shared memory as M (rows r, stride st) for the
+//     next chunk's product, whose B operand reads it there; the warps'
+//     partial sums of M y_t meet once a chunk in shared memory. The next
+//     chunk's y, z, out tile and per-step scalars load by cp.async while
+//     this chunk computes (y after the product, z after the sums are read,
+//     the rest double-buffered); X goes through registers into (diag(gamma)
+//     X)^T and X^T;
 //  7. mlstm_scan_bwd_dots, a warp per (row, step, head): Cs_t = k_t . dk_t,
 //     the column sum of G;
 //  8. mlstm_scan_bwd_dgates, a warp per (row, head), serially from the last
@@ -854,50 +869,181 @@ extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
 //     no pair crosses step 0), m_t taking -R_t and handing it back through
 //     m_t = max(f_t + m_{t-1}, i_t) (halves at a tie, as jnp.maximum):
 //     df_t = A_t + da_t, di_t = Cs_t + (1 - sel_t)(dm - R_t).
-// No hd^2 product per step forms a gate gradient. Every product runs on the
-// FMA units in fp32 (a first version; the forward's 3xTF32 tensor-core
-// tiles are the lever), each chunk's update of M summed apart and added to
-// the decayed M once (as the forward adds C's). Scratch: m, b, s, w, s /
-// den, s dd, R, Cs per step and n per chunk (B H NC hd): 3 MB at
-// xlstm_1_3b, B = 2, S = 4096. No state is stored: the 1.07 GB of C at
-// every chunk boundary that a stored-state design needs is rebuilt by the
-// forward walk instead.
+// No hd^2 product per step forms a gate gradient.
+// Tensor cores: the walks' M y_t (depth hd) and X^T diag(gamma) Z (depth L)
+// and the intra's Q K^T and dH V^T (depth hd) run on mma.sync m16n8k8 in
+// 3xTF32, with the forward's rules: each fp32 operand split into a TF32
+// value and its TF32 remainder, the small terms first; each 8-deep step's
+// three products in a fresh accumulator, added to the running sum with
+// __fadd_rn (the tensor core's own accumulation truncates); each chunk's
+// update of M summed apart over its four 8-deep steps and added to the
+// decayed M once (s_e M + U, as the FMA walk rounded it), so M rounds twice
+// a chunk, not once a term. No fast math.
+// FMA units: the intra's three products against the causal matrices (dS K,
+// dS^T Q, (P / den)^T dH; 32 terms a row, in the loop's order) skip the
+// masked half (s > t), and P and dS are 0 there by a select, not by a
+// product with D = 0: a masked 0 times a non-finite k_s or q_t would be
+// NaN, and would reach gradients the loop leaves finite (dq at steps before
+// a non-finite k_s). So do q_t . n and dh_t . h_t. A non-finite operand of
+// a tensor-core product gives NaN where the loop may give inf (the split's
+// remainder is inf - inf); such rows are NaN in the loop's gradients too.
+// Shared memory at hd = 512: the walk 226,176 bytes (M and y at stride 516,
+// z at 520 and its partial sums, two buffers of 3,424 floats of smalls),
+// the intra 215,808 (q, k, dh at stride 516; v's two 64-column slices,
+// reused for Q K^T, dH V^T, then dS, dS^T and (P / den)^T): one block a SM.
+// Strides make every fragment read conflict-free (4 mod 32 floats; z's rows
+// 8 mod 32). Scratch: m, b, s, w, s / den, s dd, R, Cs per step and n per
+// chunk (B H NC hd): 3 MB at xlstm_1_3b, B = 2, S = 4096.
 
 namespace {
 
-constexpr int XB = 32;                   // hd columns a slice (bwd intra)
-constexpr int XBS = XB + 4;              // row stride of the slices
 constexpr int IB = 256;                  // bwd intra threads
-static_assert(L * L / 4 == IB && L * XB / 4 == IB, "4 outputs a thread");
+constexpr int XB = 64;                   // hd columns a slice of v (intra)
+constexpr int XBS = XB + 4;              // row stride of the v slices
+constexpr int DS = L + 4;                // row stride of dS, dS^T, (P/den)^T
+constexpr int NB = 128;                  // nsum / ncombine threads
+constexpr int NU = 16;                   // chunks a batch of loads (ncombine)
+// one buffer of a walk chunk's smalls: (diag(gamma) X)^T and X^T (T x PS),
+// the out tile (L x T), alpha, beta, gamma_n (L each)
+constexpr int WSMALLS = 2 * T * PS + L * T + 3 * L;
+static_assert(XB == 4 << 4, "the intra loads take 16 vectors a row");
+static_assert(2 * L * XBS >= 2 * L * (L + 1) && 2 * L * XBS >= 3 * L * DS,
+              "the v slices hold Q K^T and dH V^T, then dS and (P/den)^T");
+static_assert(IB == 2 * (512 / 4), "the intra's dq, dk, dv: 4 columns and "
+              "every other row a thread, at hd <= 512");
 
 __device__ __forceinline__ float half_at_ties(float x, float y) {
   return x > y ? 1.0f : (x == y ? 0.5f : 0.0f);
 }
 
 // ---- 2. n before every chunk -----------------------------------------------
-__global__ void __launch_bounds__(128)
-mlstm_scan_bwd_nprev(const float* __restrict__ k, const float* __restrict__ so,
-                     const float* __restrict__ wo, float* __restrict__ np,
-                     int S, int H, int hd, int NC) {
-  const int x = blockIdx.x * 128 + threadIdx.x;
+// nsum: thread id sums 4 columns of the chunk's K^T w, in the loop's order
+template <bool VEC>
+__global__ void __launch_bounds__(NB)
+mlstm_scan_bwd_nsum(const float* __restrict__ k, const float* __restrict__ wo,
+                    float* __restrict__ np, int S, int H, int hd, int NC) {
+  const int c = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
+  const int bh = bb * H + hh, c0 = c * L, Lc = min(L, S - c0);
+  const long long g0 = (long long)bh * NC * L + c0;
+  const long long row0 = (long long)(bb * S + c0) * H + hh;
+  float* out = np + ((long long)bh * NC + c) * hd;
+  for (int x = 4 * threadIdx.x; x < hd; x += 4 * NB) {
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+    for (int s = 0; s < Lc; ++s) {
+      const float w = wo[g0 + s];
+      const float* kr = k + (row0 + (long long)s * H) * hd + x;
+      if (VEC) {
+        const float4 kv = ld4(kr);
+        a[0] = fmaf(w, kv.x, a[0]);
+        a[1] = fmaf(w, kv.y, a[1]);
+        a[2] = fmaf(w, kv.z, a[2]);
+        a[3] = fmaf(w, kv.w, a[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (x + e < hd) a[e] = fmaf(w, kr[e], a[e]);
+      }
+    }
+    if (VEC) {
+      *reinterpret_cast<float4*>(out + x) = make_float4(a[0], a[1], a[2],
+                                                        a[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (x + e < hd) out[x + e] = a[e];
+    }
+  }
+}
+
+// ncombine: in place, chunk sums in, n before each chunk out; the loads of
+// NU chunks go out together, ahead of the chain
+__global__ void __launch_bounds__(NB)
+mlstm_scan_bwd_ncombine(const float* __restrict__ so, float* __restrict__ np,
+                        int S, int H, int hd, int NC) {
+  const int x = blockIdx.x * NB + threadIdx.x;
   if (x >= hd) return;
-  const int hh = blockIdx.y, bb = blockIdx.z, bh = bb * H + hh;
+  const int bh = blockIdx.z * H + blockIdx.y;
   const long long g0 = (long long)bh * NC * L;
+  float* p = np + (long long)bh * NC * hd + x;
   float n = 0.0f;
-  for (int c = 0; c < NC; ++c) {
-    const int c0 = c * L, Lc = min(L, S - c0);
-    np[((long long)bh * NC + c) * hd + x] = n;
-    float acc = 0.0f;
-    for (int s = 0; s < Lc; ++s)
-      acc = fmaf(wo[g0 + c0 + s],
-                 k[((long long)(bb * S + c0 + s) * H + hh) * hd + x], acc);
-    n = __fadd_rn(__fmul_rn(so[g0 + c0 + Lc - 1], n), acc);
+  for (int c = 0; c < NC; c += NU) {
+    float u[NU], a[NU];
+#pragma unroll
+    for (int e = 0; e < NU; ++e) {
+      const int cc = c + e;
+      const bool ok = cc < NC;
+      u[e] = ok ? p[(long long)cc * hd] : 0.0f;
+      a[e] = ok ? so[g0 + (long long)cc * L + min(L, S - cc * L) - 1] : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < NU; ++e) {
+      if (c + e < NC) {
+        p[(long long)(c + e) * hd] = n;
+        n = __fadd_rn(__fmul_rn(a[e], n), u[e]);
+      }
+    }
   }
 }
 
 // ---- 3. intra ---------------------------------------------------------------
-// Thread (t = tid / 8, g = tid % 8) owns P's row t, columns 4g .. 4g + 3.
-__global__ void __launch_bounds__(IB)
+// dq, dk or dv of the chunk: out rows j' = 2 j + par (j < 16) of 4 columns
+// at x, sum over the causal half of mat (row-major, stride DS; mat[j'][o]
+// is 0 past it) times rows o of src (stride sx): LOWER sums o <= j' (dS K,
+// dS read as [t][s]), else o >= j' (dS^T Q and (P/den)^T dH, read
+// transposed as [s][t]); o ascending, fmaf, as the loop's order
+template <bool LOWER, bool VEC>
+__device__ __forceinline__ void causal_rows(const float* mat, const float* src,
+                                            int sx, int x, int par,
+                                            float* __restrict__ dst,
+                                            long long row0, int H, int hd,
+                                            int Lc) {
+  float a[L / 2][4];
+#pragma unroll
+  for (int j = 0; j < L / 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.0f;
+  for (int ob = 0; ob < L; ob += 4) {
+    float4 sv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sv[e] = ld4(src + (ob + e) * sx + x);
+#pragma unroll
+    for (int j = 0; j < L / 2; ++j) {
+      const int r = 2 * j + par;
+      if (LOWER ? ob <= r : ob + 3 >= r) {
+        const float4 w4 = ld4(mat + r * DS + ob);
+        const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (LOWER ? ob + e <= r : ob + e >= r) {
+            a[j][0] = fmaf(w[e], sv[e].x, a[j][0]);
+            a[j][1] = fmaf(w[e], sv[e].y, a[j][1]);
+            a[j][2] = fmaf(w[e], sv[e].z, a[j][2]);
+            a[j][3] = fmaf(w[e], sv[e].w, a[j][3]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < L / 2; ++j) {
+    const int r = 2 * j + par;
+    if (r < Lc) {
+      float* o = dst + (row0 + (long long)r * H) * hd + x;
+      if (VEC) {
+        *reinterpret_cast<float4*>(o) = make_float4(a[j][0], a[j][1],
+                                                    a[j][2], a[j][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (x + e < hd) o[e] = a[j][e];
+      }
+    }
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(IB, 1)
 mlstm_scan_bwd_intra(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ h,
                      const float* __restrict__ dh,
@@ -907,251 +1053,465 @@ mlstm_scan_bwd_intra(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dq, float* __restrict__ dk,
                      float* __restrict__ dv, float* __restrict__ sdo,
                      float* __restrict__ sddo, float* __restrict__ Ro,
-                     int S, int H, int hd, int NC) {
-  __shared__ __align__(16) float xs[5][L][XBS];   // q k v dh h, then q k dh
-  __shared__ float ns[XB];
-  __shared__ float ds[L][L + 1], ps[L][L + 1];    // dS, P / den
+                     int S, int H, int hd, int NC, int sx) {
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;                        // L x sx: the chunk's q
+  float* ks = qs + L * sx;               // its k
+  float* dhs = ks + L * sx;              // its dh
+  float* vb = dhs + L * sx;              // 2 x L x XBS: v's slices, then
+  float* sc = vb + 2 * L * XBS;          // q_t . n, dh_t . h_t (L each)
   const int c = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int bh = bb * H + hh, c0 = c * L, Lc = min(L, S - c0);
-  const int tid = threadIdx.x, t = tid >> 3, g = tid & 7, s0 = 4 * g;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const long long row0 = (long long)(bb * S + c0) * H + hh;
   const long long o = (long long)bh * NC * L + c0;
-  const float* npc = np + ((long long)bh * NC + c) * hd;
-  auto load = [&](int slot, const float* src, int x0) {
-    for (int e = tid; e < L * XB; e += IB) {
-      const int r = e / XB, x = e % XB;
-      xs[slot][r][x] = (r < Lc && x0 + x < hd)
-                           ? src[(row0 + (long long)r * H) * hd + x0 + x]
-                           : 0.0f;
-    }
+  const int hd8 = (hd + 7) & ~7;
+
+  // Q K^T (warps 0-3) and dH V^T (warps 4-7): quarter (t0, s0) each
+  const int prod = wid >> 2, t0 = 16 * ((wid >> 1) & 1), s0 = 16 * (wid & 1);
+  auto load = [&](int x0, int u) {
+    const int x1 = min(x0 + XB, hd8);
+    load_rows<VEC>(qs, q, row0, H, hd, sx, Lc, x0, x1, 0, tid, IB, 4);
+    load_rows<VEC>(ks, k, row0, H, hd, sx, Lc, x0, x1, 0, tid, IB, 4);
+    load_rows<VEC>(dhs, dh, row0, H, hd, sx, Lc, x0, x1, 0, tid, IB, 4);
+    load_rows<VEC>(vb + u * L * XBS, v, row0, H, hd, XBS, Lc, x0, x1, x0,
+                   tid, IB, 4);
+    cp_commit();
   };
-  float sq[4] = {}, dvh[4] = {}, qn = 0.0f, u = 0.0f;
-  for (int x0 = 0; x0 < hd; x0 += XB) {
-    __syncthreads();
-    load(0, q, x0);
-    load(1, k, x0);
-    load(2, v, x0);
-    load(3, dh, x0);
-    load(4, h, x0);
-    if (tid < XB) ns[tid] = x0 + tid < hd ? npc[x0 + tid] : 0.0f;
-    __syncthreads();
-    for (int x = 0; x < XB; ++x) {
-      const float qx = xs[0][t][x], dx = xs[3][t][x];
+  float acc[2][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sq[e] = fmaf(qx, xs[1][s0 + e][x], sq[e]);
-        dvh[e] = fmaf(dx, xs[2][s0 + e][x], dvh[e]);
+  for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[ni][r] = 0.0f;
+  load(0, 0);
+  for (int x0 = 0, u = 0; x0 < hd8; x0 += XB, u ^= 1) {
+    if (x0 + XB < hd8) {
+      load(x0 + XB, u ^ 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const int xn = min(XB, hd8 - x0);
+    const float* as_ = (prod ? dhs : qs) + t0 * sx + x0;
+    const float* bs_ = prod ? vb + u * L * XBS + s0 * XBS : ks + s0 * sx + x0;
+    const int ldb = prod ? XBS : sx;
+    for (int x = 0; x < xn; x += 8) {
+      unsigned ab[4], as[4], bb2[2][2], bs2[2][2];
+      frag_a(as_ + x, sx, 1, g, tq, ab, as);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        frag_b(bs_ + 8 * ni * ldb + x, ldb, 1, g, tq, bb2[ni], bs2[ni]);
+      float d[2][4] = {};
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], as, bb2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], ab, bs2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(d[ni], ab, bb2[ni]);
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          acc[ni][r] = __fadd_rn(acc[ni][r], d[ni][r]);
+    }
+    __syncthreads();                     // before the buffer is refilled
+  }
+  float* sqm = vb;                       // L x (L + 1): q_t . k_s
+  float* dvm = vb + L * (L + 1);         // dh_t . v_s
+  {
+    float* outm = prod ? dvm : sqm;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int cj = 0; cj < 2; ++cj)
+          outm[(t0 + g + 8 * hf) * (L + 1) + s0 + 8 * ni + 2 * tq + cj] =
+              acc[ni][2 * hf + cj];
+  }
+  // q_t . n_prev and dh_t . h_t: warp w rows 4 w .. 4 w + 3
+  const float* npc = np + ((long long)bh * NC + c) * hd;
+#pragma unroll
+  for (int j = 0; j < L / 8; ++j) {
+    const int t = (L / 8) * wid + j;
+    float qn = 0.0f, uu = 0.0f;
+    if (t < Lc) {
+      const float* hr = h + (row0 + (long long)t * H) * hd;
+      for (int x = lane; x < hd; x += 32) {
+        qn = fmaf(qs[t * sx + x], npc[x], qn);
+        uu = fmaf(dhs[t * sx + x], hr[x], uu);
       }
     }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {        // this thread's 4 columns of the
-      const int x = s0 + e;              // slice for q . n and dh . h
-      qn = fmaf(xs[0][t][x], ns[x], qn);
-      u = fmaf(xs[3][t][x], xs[4][t][x], u);
+    for (int m = 16; m; m >>= 1) {
+      qn = __fadd_rn(qn, __shfl_xor_sync(0xffffffffu, qn, m));
+      uu = __fadd_rn(uu, __shfl_xor_sync(0xffffffffu, uu, m));
+    }
+    if (lane == 0) {
+      sc[t] = qn;
+      sc[L + t] = uu;
     }
   }
+  __syncthreads();
+
+  // D, P, the row sum of P, and the step's scalars: thread (t = tid / 8,
+  // columns sb .. sb + 3); masked entries are 0 by a select
+  {
+    const int t = tid >> 3, sb = 4 * (tid & 7);
+    const float mt = mo[o + t], bt = bo[o + t];
+    float D[4], P[4], rs = 0.0f;
 #pragma unroll
-  for (int m = 1; m < 8; m <<= 1) {
-    qn = __fadd_rn(qn, __shfl_xor_sync(0xffffffffu, qn, m));
-    u = __fadd_rn(u, __shfl_xor_sync(0xffffffffu, u, m));
-  }
-  // D, P, the row sum of P, and the step's scalars
-  const float mt = mo[o + t], bt = bo[o + t];
-  float D[4], P[4], rs = 0.0f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int s = s0 + e;
-    D[e] = 0.0f;
-    if (s <= t && t < Lc) {
-      const float is = ipre[row0 + (long long)s * H];
-      D[e] = expf(__fadd_rn(__fsub_rn(is, mt), __fsub_rn(bt, bo[o + s])));
-    }
-    P[e] = __fmul_rn(D[e], sq[e]);
-    rs = __fadd_rn(rs, P[e]);
-  }
-#pragma unroll
-  for (int m = 1; m < 8; m <<= 1)
-    rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, m));
-  const float st = t < Lc ? so[o + t] : 0.0f;
-  const float d = __fadd_rn(__fmul_rn(st, qn), rs);
-  const float ad = fabsf(d);
-  const float den = ad != ad ? ad : fmaxf(ad, 1.0f);
-  const float mu = half_at_ties(ad, 1.0f);
-  const float sg = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
-  const float dd = t < Lc ? __fmul_rn(__fmul_rn(-__fdiv_rn(u, den), mu), sg)
-                          : 0.0f;
-  if (g == 0) {
-    sdo[o + t] = t < Lc ? __fdiv_rn(st, den) : 0.0f;
-    sddo[o + t] = __fmul_rn(st, dd);
-    Ro[o + t] = t < Lc ? __fmul_rn(u, __fsub_rn(1.0f, mu)) : 0.0f;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    ds[t][s0 + e] = __fmul_rn(__fadd_rn(__fdiv_rn(dvh[e], den), dd), D[e]);
-    ps[t][s0 + e] = __fdiv_rn(P[e], den);
-  }
-  // dq = dS K, dk = dS^T Q, dv = (P / den)^T dH, a slice of hd at a time:
-  // thread (r = tid / 8, 4 columns at 4 (tid % 8))
-  const int r = tid >> 3, xc = 4 * (tid & 7);
-  for (int x0 = 0; x0 < hd; x0 += XB) {
-    __syncthreads();
-    load(0, q, x0);
-    load(1, k, x0);
-    load(3, dh, x0);
-    __syncthreads();
-    float aq[4] = {}, ak[4] = {}, av[4] = {};
-    for (int s = 0; s <= r; ++s) {       // dS is 0 above the diagonal
-      const float w = ds[r][s];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) aq[e] = fmaf(w, xs[1][s][xc + e], aq[e]);
-    }
-    for (int tt = r; tt < L; ++tt) {
-      const float w = ds[tt][r], pw = ps[tt][r];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ak[e] = fmaf(w, xs[0][tt][xc + e], ak[e]);
-        av[e] = fmaf(pw, xs[3][tt][xc + e], av[e]);
+    for (int e = 0; e < 4; ++e) {
+      const int s = sb + e;
+      const bool in = s <= t && t < Lc;
+      D[e] = 0.0f;
+      P[e] = 0.0f;
+      if (in) {
+        const float is = ipre[row0 + (long long)s * H];
+        D[e] = expf(__fadd_rn(__fsub_rn(is, mt), __fsub_rn(bt, bo[o + s])));
+        P[e] = __fmul_rn(D[e], sqm[t * (L + 1) + s]);
       }
+      rs = __fadd_rn(rs, P[e]);
     }
-    if (r < Lc) {
-      const long long base = (row0 + (long long)r * H) * hd + x0 + xc;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (x0 + xc + e < hd) {
-          dq[base + e] = aq[e];
-          dk[base + e] = ak[e];
-          dv[base + e] = av[e];
-        }
-      }
+    for (int m = 1; m < 8; m <<= 1)
+      rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, m));
+    const float st = t < Lc ? so[o + t] : 0.0f;
+    const float u = sc[L + t];
+    const float d = __fadd_rn(__fmul_rn(st, sc[t]), rs);
+    const float ad = fabsf(d);
+    const float den = ad != ad ? ad : fmaxf(ad, 1.0f);
+    const float mu = half_at_ties(ad, 1.0f);
+    const float sg = d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+    const float dd = t < Lc ? __fmul_rn(__fmul_rn(-__fdiv_rn(u, den), mu), sg)
+                            : 0.0f;
+    if ((tid & 7) == 0) {
+      sdo[o + t] = t < Lc ? __fdiv_rn(st, den) : 0.0f;
+      sddo[o + t] = __fmul_rn(st, dd);
+      Ro[o + t] = t < Lc ? __fmul_rn(u, __fsub_rn(1.0f, mu)) : 0.0f;
     }
+    float dsv[4], pdv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int s = sb + e;
+      const bool in = s <= t && t < Lc;
+      dsv[e] = in ? __fmul_rn(__fadd_rn(__fdiv_rn(dvm[t * (L + 1) + s], den),
+                                        dd), D[e])
+                  : 0.0f;
+      pdv[e] = in ? __fdiv_rn(P[e], den) : 0.0f;
+    }
+    __syncthreads();                     // Q K^T and dH V^T are read
+    float* dsm = vb;                     // L x DS: dS[t][s]
+    float* dst = dsm + L * DS;           // dS^T[s][t]
+    float* pdt = dst + L * DS;           // (P / den)^T[s][t]
+    *reinterpret_cast<float4*>(dsm + t * DS + sb) =
+        make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dst[(sb + e) * DS + t] = dsv[e];
+      pdt[(sb + e) * DS + t] = pdv[e];
+    }
+  }
+  __syncthreads();
+  // dq = dS K, dk = dS^T Q, dv = (P / den)^T dH: thread (columns 4 (tid %
+  // 128), rows of parity tid / 128)
+  const int x = 4 * (tid & (IB / 2 - 1)), par = tid / (IB / 2);
+  if (x < hd) {
+    const float* dsm = vb;
+    causal_rows<true, VEC>(dsm, ks, sx, x, par, dq, row0, H, hd, Lc);
+    causal_rows<false, VEC>(dsm + L * DS, qs, sx, x, par, dk, row0, H, hd,
+                            Lc);
+    causal_rows<false, VEC>(dsm + 2 * L * DS, dhs, sx, x, par, dv, row0, H,
+                            hd, Lc);
   }
 }
 
 // ---- 4-6. the walks ---------------------------------------------------------
 struct Walk {
   const float *y, *z, *x;                // (B, S, H, hd)
-  const float *alpha, *beta, *gamma, *gamman;   // per step
+  const float *alpha, *beta, *gamma, *gamman;   // per step; beta, gamman
   float* out;                            // (B, S, H, hd), added to
-  int rev, nvec;
+  int rev;                               // walk the chunks back in time
 };
 
-template <int XW>
+// one buffer of a chunk's smalls
+struct WSmalls {
+  float *xgt, *xt, *ob, *al, *be, *gn;
+};
+
+__device__ __forceinline__ WSmalls wsmalls(float* base, int u) {
+  WSmalls b;
+  b.xgt = base + u * WSMALLS;
+  b.xt = b.xgt + T * PS;
+  b.ob = b.xt + T * PS;
+  b.al = b.ob + L * T;
+  b.be = b.al + L;
+  b.gn = b.be + L;
+  return b;
+}
+
+template <bool VEC, int XW>
 __global__ void __launch_bounds__(NT, 1)
 mlstm_scan_bwd_walk(Walk wk, const float* __restrict__ so, int S, int H,
-                    int hd, int NC, int st, int vec) {
+                    int hd, int NC, int st, int sk, int kbn) {
+  constexpr int LXW = XW == 16 ? 2 : XW == 32 ? 3 : 4;
+  constexpr int MT = XW / 16;            // m16 tiles of this warp's columns
+  static_assert(XW == 4 << LXW, "XW is 16, 32 or 64");
   extern __shared__ __align__(16) float sm[];
-  float* ys = sm;                        // L x st: the chunk's y
-  float* zs = ys + L * st;               // L x st: its z
-  float* xt = zs + L * st;               // L x (T + 1): its x, M's rows
-  float* red = xt + L * (T + 1);         // W x L x (T + 1): partial sums
-  float* nv = red + W * L * (T + 1);     // T
-  float* sc = nv + T;                    // alpha, beta, gamma, gamman (L each)
+  float* mt = sm;                        // T x st: M's 32 rows
+  float* ys = mt + T * st;               // L x st: the chunk's y
+  float* zs = ys + L * st;               // L x sk: its z; the partial sums
+  float* nv = zs + kbn;                  // T
+  float* smb = nv + T;                   // 2 x WSMALLS
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
   const int r0 = blockIdx.x * T, hh = blockIdx.y, bb = blockIdx.z;
-  const int bh = bb * H + hh, xb = wid * XW;
+  const int bh = bb * H + hh;
+  const int xbase = wid * XW, xend = xbase + XW;
   const long long brow = (long long)bb * S * H + hh;
   const long long g0 = (long long)bh * NC * L;
-  float M[XW];
-#pragma unroll
-  for (int e = 0; e < XW; ++e) M[e] = 0.0f;
+  const bool nvec = wk.beta != nullptr;
+
+  for (int e = tid; e < T * st; e += NT) mt[e] = 0.0f;
   if (tid < T) nv[tid] = 0.0f;
-  for (int it = 0; it < NC; ++it) {
-    const int c = wk.rev ? NC - 1 - it : it, c0 = c * L;
-    const int Lc = min(L, S - c0);
-    const bool last = it == NC - 1;
-    __syncthreads();                     // the last chunk's reads are done
-    // this warp's columns of y and z; zeros past Lc and hd
-    const long long rowc = brow + (long long)c0 * H;
-    if (vec) {
-      for (int e = lane; e < L * XW / 4; e += 32) {
-        const int t = e / (XW / 4), x = xb + 4 * (e % (XW / 4));
-        const bool ok = t < Lc && x < hd;
-        const long long gi = (rowc + (long long)t * H) * hd + x;
-        const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        *reinterpret_cast<float4*>(ys + t * st + x) =
-            ok ? ld4(wk.y + gi) : zero;
-        *reinterpret_cast<float4*>(zs + t * st + x) =
-            ok ? ld4(wk.z + gi) : zero;
-      }
+
+  // the smalls of chunk c into buffer u: the scalars and the out tile by
+  // cp.async; X into registers (stored by store_x once Y is formed)
+  const int xs_ = tid >> 3, xj = (tid & 7) * 4;        // X element (t, r)
+  float xr[4], gr = 0.0f;
+  auto load_smalls = [&](int c, int u) {
+    const WSmalls b = wsmalls(smb, u);
+    const long long gc = g0 + (long long)c * L;
+    if (tid < L / 4) cp16(b.al + 4 * tid, wk.alpha + gc + 4 * tid, 16);
+    else if (tid < L / 2 && nvec)
+      cp16(b.be + 4 * (tid - L / 4), wk.beta + gc + 4 * (tid - L / 4), 16);
+    else if (tid >= L / 2 && tid < 3 * L / 4 && nvec)
+      cp16(b.gn + 4 * (tid - L / 2), wk.gamman + gc + 4 * (tid - L / 2), 16);
+    const int t = c * L + xs_;
+    const bool row_ok = t < S;
+    const float* og = wk.out + (brow + (long long)(row_ok ? t : 0) * H) * hd;
+    float* od = b.ob + xs_ * T + xj;
+    if (VEC) {
+      const bool ok = row_ok && r0 + xj < hd;
+      cp16(od, ok ? og + r0 + xj : wk.out, ok ? 16 : 0);
     } else {
-      for (int e = lane; e < L * XW; e += 32) {
-        const int t = e / XW, x = xb + e % XW;
-        const bool ok = t < Lc && x < hd;
-        const long long gi = (rowc + (long long)t * H) * hd + x;
-        ys[t * st + x] = ok ? wk.y[gi] : 0.0f;
-        zs[t * st + x] = ok ? wk.z[gi] : 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row_ok && r0 + xj + e < hd;
+        cp4(od + e, ok ? og + r0 + xj + e : wk.out, ok ? 4 : 0);
       }
     }
-    for (int e = tid; e < L * T; e += NT) {
-      const int t = e / T, rr = e % T;
-      xt[t * (T + 1) + rr] = (t < Lc && r0 + rr < hd)
-          ? wk.x[(rowc + (long long)t * H) * hd + r0 + rr] : 0.0f;
+    gr = wk.gamma[gc + xs_];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + xj + e;
+      xr[e] = (row_ok && r < hd)
+                  ? wk.x[(brow + (long long)t * H) * hd + r] : 0.0f;
     }
-    if (tid < 4 * L) {
-      const int which = tid / L, t = tid % L;
-      const float* src = which == 0 ? wk.alpha : which == 1 ? wk.beta
-                       : which == 2 ? wk.gamma : wk.gamman;
-      sc[tid] = (t < Lc && src) ? src[g0 + c0 + t] : 0.0f;
+  };
+  auto store_x = [&](int u) {
+    const WSmalls b = wsmalls(smb, u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      b.xt[(xj + e) * PS + xs_] = xr[e];
+      b.xgt[(xj + e) * PS + xs_] = __fmul_rn(gr, xr[e]);
     }
+  };
+  auto load_y = [&](int c) {
+    load_rows<VEC>(ys, wk.y, brow + (long long)c * L * H, H, hd, st,
+                   min(L, S - c * L), xbase, xend, 0, lane, 32, LXW);
+  };
+  auto load_z = [&](int c) {
+    load_rows<VEC>(zs, wk.z, brow + (long long)c * L * H, H, hd, sk,
+                   min(L, S - c * L), xbase, xend, 0, lane, 32, LXW);
+  };
+  auto chunk = [&](int it) { return wk.rev ? NC - 1 - it : it; };
+
+  load_smalls(chunk(0), 0);
+  store_x(0);
+  cp_commit();
+  load_y(chunk(0));
+  cp_commit();
+  load_z(chunk(0));
+  cp_commit();
+
+  float cc[MT][4][4];                    // this warp's columns of M, as M^T
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) cc[mi][ni][r] = 0.0f;
+  for (int it = 0; it < NC; ++it) {
+    const int c = chunk(it), u = it & 1, c0 = c * L, Lc = min(L, S - c0);
+    const bool more = it + 1 < NC;
     const float a = so[g0 + c0 + Lc - 1];  // the chunk's decay s_e
+    cp_wait<1>();                        // smalls(c), y(c)
     __syncthreads();
-    // M y_t over this warp's columns, for every step of the chunk
-    for (int t = 0; t < L; ++t) {
-      float acc = 0.0f;
+    if (more) load_smalls(chunk(it + 1), u ^ 1);
+    cp_commit();
+    const WSmalls sb = wsmalls(smb, u);
+
+    // Y = y M^T over this warp's columns of M: L x T as 2 x 4 m16n8
+    // tiles, each 8-deep step's three products in a fresh accumulator d,
+    // added to acc in fp32
+    float acc[2][4][4];
 #pragma unroll
-      for (int e = 0; e < XW; e += 4) {
-        const float4 y4 = ld4(ys + t * st + xb + e);
-        acc = fmaf(M[e], y4.x, acc);
-        acc = fmaf(M[e + 1], y4.y, acc);
-        acc = fmaf(M[e + 2], y4.z, acc);
-        acc = fmaf(M[e + 3], y4.w, acc);
-      }
-      red[(wid * L + t) * (T + 1) + lane] = acc;
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.0f;
+#pragma unroll
+    for (int x = xbase; x < xend; x += 8) {
+      unsigned ab[2][4], as[2][4], bb2[4][2], bs2[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        frag_a(ys + 16 * mi * st + x, st, 1, g, tq, ab[mi], as[mi]);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        frag_b(mt + 8 * ni * st + x, st, 1, g, tq, bb2[ni], bs2[ni]);
+      float d[2][4][4] = {};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], as[mi], bb2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], ab[mi], bs2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma(d[mi][ni], ab[mi], bb2[ni]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            acc[mi][ni][r] = __fadd_rn(acc[mi][ni][r], d[mi][ni][r]);
     }
-    if (!last) {                         // M <- a M + X^T diag(gamma) Z
-      float xg[L];
+    __syncwarp();
+    if (more) load_y(chunk(it + 1));     // this warp's columns only
+    cp_commit();
+    if (more) store_x(u ^ 1);
+
+    cp_wait<2>();                        // z(c), which the partial sums
+    __syncwarp();                        // overwrite even in the last chunk
+    if (more) {                          // this warp's columns of M
+      // U = X^T diag(gamma) Z over the chunk's four 8-deep steps, each in
+      // a fresh accumulator, summed in fp32; then M <- a M + U, added once.
+      // (diag(gamma) X) and z are 0 past Lc
 #pragma unroll
-      for (int t = 0; t < L; ++t)
-        xg[t] = __fmul_rn(xt[t * (T + 1) + lane], sc[2 * L + t]);
+      for (int mi = 0; mi < MT; ++mi) {
+        float up[4][4];
 #pragma unroll
-      for (int e = 0; e < XW; e += 4) {
-        float u0 = 0.0f, u1 = 0.0f, u2 = 0.0f, u3 = 0.0f;
+        for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int t = 0; t < L; ++t) {
-          const float4 z4 = ld4(zs + t * st + xb + e);
-          u0 = fmaf(xg[t], z4.x, u0);
-          u1 = fmaf(xg[t], z4.y, u1);
-          u2 = fmaf(xg[t], z4.z, u2);
-          u3 = fmaf(xg[t], z4.w, u3);
+          for (int r = 0; r < 4; ++r) up[ni][r] = 0.0f;
+#pragma unroll
+        for (int ks = 0; ks < L; ks += 8) {
+          unsigned ab[4], as[4], b2[4][2], s2[4][2];
+          frag_a(zs + ks * sk + xbase + 16 * mi, 1, sk, g, tq, ab, as);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            frag_b(sb.xgt + 8 * ni * PS + ks, PS, 1, g, tq, b2[ni], s2[ni]);
+          float d[4][4] = {};
+#pragma unroll
+          for (int pass = 0; pass < 3; ++pass)   // small terms first
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni)
+              mma(d[ni], pass == 0 ? as : ab, pass == 1 ? s2[ni] : b2[ni]);
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              up[ni][r] = __fadd_rn(up[ni][r], d[ni][r]);
         }
-        M[e] = __fadd_rn(__fmul_rn(a, M[e]), u0);
-        M[e + 1] = __fadd_rn(__fmul_rn(a, M[e + 1]), u1);
-        M[e + 2] = __fadd_rn(__fmul_rn(a, M[e + 2]), u2);
-        M[e + 3] = __fadd_rn(__fmul_rn(a, M[e + 3]), u3);
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < L * T; e += NT) {   // the warps' sums, out +=
-      const int t = e / T, rr = e % T;
-      float sum = 0.0f;
 #pragma unroll
-      for (int w = 0; w < W; ++w)
-        sum = __fadd_rn(sum, red[(w * L + t) * (T + 1) + rr]);
-      float val = __fmul_rn(sc[t], sum);
-      if (wk.nvec) val = __fadd_rn(val, __fmul_rn(sc[L + t], nv[rr]));
-      if (t < Lc && r0 + rr < hd) {
-        float* p = wk.out + (rowc + (long long)t * H) * hd + r0 + rr;
-        *p = __fadd_rn(*p, val);
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            cc[mi][ni][r] = __fadd_rn(__fmul_rn(a, cc[mi][ni][r]),
+                                      up[ni][r]);
+            // M's rows r are the tiles' columns: conflict-free at st = 4
+            // mod 32
+            const int x = xbase + 16 * mi + g + 8 * (r >> 1);
+            mt[(8 * ni + 2 * tq + (r & 1)) * st + x] =
+                x < hd ? cc[mi][ni][r] : 0.0f;
+          }
       }
     }
-    __syncthreads();                     // nv is read
-    if (wk.nvec && !last && tid < T) {   // nv <- a nv + X^T gamma_n
-      float acc = 0.0f;
-      for (int t = 0; t < L; ++t)
-        acc = fmaf(xt[t * (T + 1) + tid], sc[3 * L + t], acc);
-      nv[tid] = __fadd_rn(__fmul_rn(a, nv[tid]), acc);
+    __syncthreads();                     // every warp is done with z(c)
+
+    // the warps' partial sums, through the z buffer
+    float* red = zs;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = 16 * mi + g + 8 * hf;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          *reinterpret_cast<float2*>(red + (wid * L + t) * RS + 8 * ni +
+                                     2 * tq) =
+              make_float2(acc[mi][ni][2 * hf], acc[mi][ni][2 * hf + 1]);
+      }
+    __syncthreads();
+    {                                    // out_t[r] += alpha_t Y + beta_t nv
+      const int t = tid >> 3, jj = (tid & 7) * 4;
+      float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const float4 p = ld4(red + (w * L + t) * RS + jj);
+        s4[0] = __fadd_rn(s4[0], p.x);
+        s4[1] = __fadd_rn(s4[1], p.y);
+        s4[2] = __fadd_rn(s4[2], p.z);
+        s4[3] = __fadd_rn(s4[3], p.w);
+      }
+      const float al = sb.al[t], be = nvec ? sb.be[t] : 0.0f;
+      const float4 prev = ld4(sb.ob + t * T + jj);
+      const float pv[4] = {prev.x, prev.y, prev.z, prev.w};
+      float o4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = __fmul_rn(al, s4[e]);
+        if (nvec) val = __fadd_rn(val, __fmul_rn(be, nv[jj + e]));
+        o4[e] = __fadd_rn(pv[e], val);
+      }
+      if (t < Lc) {
+        float* out = wk.out + (brow + (long long)(c0 + t) * H) * hd + r0 + jj;
+        if (VEC && r0 + jj < hd) {
+          *reinterpret_cast<float4*>(out) =
+              make_float4(o4[0], o4[1], o4[2], o4[3]);
+        } else if (!VEC) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (r0 + jj + e < hd) out[e] = o4[e];
+        }
+      }
     }
+    __syncthreads();                     // the partial sums and nv are read
+    if (nvec && more && wid == 0) {      // nv <- a nv + X^T gamma_n
+      float acc_n = 0.0f;
+#pragma unroll
+      for (int t = 0; t < L; t += 4) {
+        const float4 x4 = ld4(sb.xt + lane * PS + t);
+        const float4 g4 = ld4(sb.gn + t);
+        acc_n = fmaf(x4.x, g4.x, acc_n);
+        acc_n = fmaf(x4.y, g4.y, acc_n);
+        acc_n = fmaf(x4.z, g4.z, acc_n);
+        acc_n = fmaf(x4.w, g4.w, acc_n);
+      }
+      nv[lane] = __fadd_rn(__fmul_rn(a, nv[lane]), acc_n);
+    }
+    if (more) load_z(chunk(it + 1));
+    cp_commit();
   }
+  cp_wait<0>();
 }
 
 // ---- 7. Cs_t = k_t . dk_t --------------------------------------------------
@@ -1225,77 +1585,119 @@ mlstm_scan_bwd_dgates(const float* __restrict__ ipre,
   }
 }
 
-template <int XW>
+// the walk's layout for warps of xw columns (as mlstm_plan's inter layout:
+// st 4 mod 8 for M and y, sk 8 mod 32 for z, whose buffer also holds the
+// warps' partial sums) and its dynamic shared bytes
+struct WalkPlan {
+  int st, sk, kbn, smem;
+};
+
+WalkPlan walk_plan(int xw) {
+  const int hp = W * xw;
+  WalkPlan p;
+  p.st = 4 * ((hp / 4) | 1);
+  p.sk = hp + 8;
+  p.kbn = L * p.sk > W * L * RS ? L * p.sk : W * L * RS;
+  p.smem = 4 * ((T + L) * p.st + p.kbn + T + 2 * WSMALLS);
+  return p;
+}
+
+template <bool VEC, int XW>
 cudaError_t walk(const Walk& wk, const float* so, int B, int S, int H,
-                 int hd, int NC, int vec, cudaStream_t s) {
-  const int st = W * XW + 4;
-  const int smem = 4 * (2 * L * st + (1 + W) * L * (T + 1) + T + 4 * L);
+                 int hd, int NC, cudaStream_t s) {
+  const WalkPlan p = walk_plan(XW);
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_scan_bwd_walk<XW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      mlstm_scan_bwd_walk<VEC, XW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  mlstm_scan_bwd_walk<XW><<<dim3((hd + T - 1) / T, H, B), NT, smem, s>>>(
-      wk, so, S, H, hd, NC, st, vec);
+  mlstm_scan_bwd_walk<VEC, XW><<<dim3((hd + T - 1) / T, H, B), NT, p.smem,
+                                  s>>>(wk, so, S, H, hd, NC, p.st, p.sk,
+                                       p.kbn);
   return cudaGetLastError();
 }
 
+template <bool VEC>
 cudaError_t walk_xw(int xw, const Walk& wk, const float* so, int B, int S,
-                    int H, int hd, int NC, int vec, cudaStream_t s) {
+                    int H, int hd, int NC, cudaStream_t s) {
   switch (xw) {
-    case 16: return walk<16>(wk, so, B, S, H, hd, NC, vec, s);
-    case 32: return walk<32>(wk, so, B, S, H, hd, NC, vec, s);
-    default: return walk<64>(wk, so, B, S, H, hd, NC, vec, s);
+    case 16: return walk<VEC, 16>(wk, so, B, S, H, hd, NC, s);
+    case 32: return walk<VEC, 32>(wk, so, B, S, H, hd, NC, s);
+    default: return walk<VEC, 64>(wk, so, B, S, H, hd, NC, s);
   }
+}
+
+template <bool VEC>
+cudaError_t bwd(const float* q, const float* k, const float* v,
+                const float* ip, const float* fp, const float* h,
+                const float* dh, float* dq, float* dk, float* dv, float* di,
+                float* df, float* scratch, int B, int S, int H, int hd,
+                int xw, cudaStream_t s) {
+  const int NC = (S + L - 1) / L;
+  const long long n = (long long)B * H * NC * L;
+  float *mo = scratch, *bo = mo + n, *so = bo + n, *wo = so + n;
+  float *sd = wo + n, *sdd = sd + n, *R = sdd + n, *Cs = R + n, *np = Cs + n;
+  mlstm_scan_bwd_gates<<<B * H, 32, 0, s>>>(ip, fp, mo, bo, so, wo, S, H, NC);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mlstm_scan_bwd_nsum<VEC><<<dim3(NC, H, B), NB, 0, s>>>(k, wo, np, S, H,
+                                                         hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_scan_bwd_ncombine<<<dim3((hd + NB - 1) / NB, H, B), NB, 0, s>>>(
+      so, np, S, H, hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int sx = 32 * ((hd + 31) / 32) + 4;
+  const int ismem = 4 * (3 * L * sx + 2 * L * XBS + 2 * L);
+  err = cudaFuncSetAttribute(mlstm_scan_bwd_intra<VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ismem);
+  if (err != cudaSuccess) return err;
+  mlstm_scan_bwd_intra<VEC><<<dim3(NC, H, B), IB, ismem, s>>>(
+      q, k, v, h, dh, ip, mo, bo, so, np, dq, dk, dv, sd, sdd, R, S, H, hd,
+      NC, sx);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (NC > 1) {                          // one chunk: nothing crosses one
+    const Walk walks[3] = {
+        {dh, v, k, sd, sdd, wo, wo, dq, 0},          // dq: C, forward
+        {v, dh, q, wo, wo, sd, sdd, dk, 1},          // dk: dC, backward
+        {k, q, dh, wo, nullptr, sd, nullptr, dv, 1}};  // dv: dC^T
+    for (const Walk& wk : walks)
+      if ((err = walk_xw<VEC>(xw, wk, so, B, S, H, hd, NC, s)) != cudaSuccess)
+        return err;
+  }
+  const long long rows = (long long)B * S * H;
+  mlstm_scan_bwd_dots<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      k, dk, Cs, B, S, H, hd, NC);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlstm_scan_bwd_dgates<<<B * H, 32, 0, s>>>(ip, fp, mo, R, Cs, di, df, S, H,
+                                             NC);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// xw: rows of a warp as the forward's plan has them (16, 32 or 64, hd <=
-// 8 xw); scratch: 8 B H NC 32 floats of per-step values, then B H NC hd of
-// n; vec: hd % 4 == 0 and every pointer 16-byte aligned.
+// xw: columns of M a walk warp, as the forward's plan has its rows of C
+// (16, 32 or 64, hd <= 8 xw); scratch: 8 B H NC 32 floats of per-step
+// values, then B H NC hd of n (each chunk's K^T w, then n before it); vec:
+// hd % 4 == 0 and every pointer 16-byte aligned.
 extern "C" int mlstm_scan_bwd_launch(
     const void* q, const void* k, const void* v, const void* i, const void* f,
     const void* h, const void* dh, void* dq, void* dk, void* dv, void* di,
     void* df, void* scratch, int B, int S, int H, int hd, int xw, int vec,
     void* stream) {
   if (B == 0 || S == 0 || H == 0 || hd == 0) return (int)cudaSuccess;
-  if ((xw != 16 && xw != 32 && xw != 64) || W * xw < hd)
+  if ((xw != 16 && xw != 32 && xw != 64) || W * xw < hd || hd > 512 ||
+      walk_plan(xw).smem > 232448)
     return (int)cudaErrorInvalidValue;
-  const int NC = (S + L - 1) / L;
+  const float* in[7] = {(const float*)q, (const float*)k, (const float*)v,
+                        (const float*)i, (const float*)f, (const float*)h,
+                        (const float*)dh};
+  float* out[5] = {(float*)dq, (float*)dk, (float*)dv, (float*)di,
+                   (float*)df};
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)B * H * NC * L;
-  float* mo = (float*)scratch;
-  float *bo = mo + n, *so = bo + n, *wo = so + n, *sd = wo + n;
-  float *sdd = sd + n, *R = sdd + n, *Cs = R + n, *np = Cs + n;
-  const float *qp = (const float*)q, *kp = (const float*)k,
-              *vp = (const float*)v, *ip = (const float*)i,
-              *fp = (const float*)f, *hp = (const float*)h,
-              *dhp = (const float*)dh;
-  float *dqp = (float*)dq, *dkp = (float*)dk, *dvp = (float*)dv;
-  mlstm_scan_bwd_gates<<<B * H, 32, 0, s>>>(ip, fp, mo, bo, so, wo, S, H, NC);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mlstm_scan_bwd_nprev<<<dim3((hd + 127) / 128, H, B), 128, 0, s>>>(
-      kp, so, wo, np, S, H, hd, NC);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_scan_bwd_intra<<<dim3(NC, H, B), IB, 0, s>>>(
-      qp, kp, vp, hp, dhp, ip, mo, bo, so, np, dqp, dkp, dvp, sd, sdd, R, S,
-      H, hd, NC);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (NC > 1) {                          // one chunk: nothing crosses one
-    const Walk walks[3] = {
-        {dhp, vp, kp, sd, sdd, wo, wo, dqp, 0, 1},     // dq: C, forward
-        {vp, dhp, qp, wo, wo, sd, sdd, dkp, 1, 1},     // dk: dC, backward
-        {kp, qp, dhp, wo, nullptr, sd, nullptr, dvp, 1, 0}};  // dv: dC^T
-    for (const Walk& wk : walks)
-      if ((err = walk_xw(xw, wk, so, B, S, H, hd, NC, vec, s)) != cudaSuccess)
-        return (int)err;
-  }
-  const long long rows = (long long)B * S * H;
-  mlstm_scan_bwd_dots<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      kp, dkp, Cs, B, S, H, hd, NC);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mlstm_scan_bwd_dgates<<<B * H, 32, 0, s>>>(ip, fp, mo, R, Cs, (float*)di,
-                                             (float*)df, S, H, NC);
-  return (int)cudaGetLastError();
+  return (int)(vec ? bwd<true>(in[0], in[1], in[2], in[3], in[4], in[5], in[6],
+                               out[0], out[1], out[2], out[3], out[4],
+                               (float*)scratch, B, S, H, hd, xw, s)
+                   : bwd<false>(in[0], in[1], in[2], in[3], in[4], in[5],
+                                in[6], out[0], out[1], out[2], out[3], out[4],
+                                (float*)scratch, B, S, H, hd, xw, s));
 }

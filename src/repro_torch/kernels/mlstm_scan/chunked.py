@@ -41,15 +41,25 @@ v_s^T with log D_ts = F_t - F_s + i_s - m_t (F the sum of f from the
 start), so the gradient is that of P_ts = D_ts (q_t . k_s) and of the
 gates through log D. Given m:
 
+* n before every chunk (the ``nsum`` and ``ncombine`` passes): every
+  chunk's K^T w at once, then n_c = s_e n_{c-1} + (K^T w)_{c-1} serially
+  over the chunks, one add a chunk, as the forward rounds n;
 * intra: dnum_t = dh_t / den_t, dd_t = -(dh_t . h_t) / den_t d den/d d
   (d_t = s_t (q_t . n_prev) + rowsum(P), recomputed); dS = (dH V^T /
-  den + dd) ⊙ D, and dq += dS K, dk += dS^T Q, dv += (P / den)^T dH;
+  den + dd) ⊙ D, 0 above the diagonal, and dq += dS K, dk += dS^T Q,
+  dv += (P / den)^T dH;
 * inter, a forward walk: dq_t += (s_t / den_t) C_prev dh_t + s_t dd_t
-  n_prev, C and n rebuilt chunk after chunk as the forward builds them;
+  n_prev, C rebuilt chunk after chunk as the forward builds it;
 * inter, a reverse walk over dC = sum_t (decay) q_t dnum_t^T and dn:
-  dk_s += w_s (dC v_s + dn), dv_s += w_s dC^T k_s, then dC <- s_e dC +
-  Q^T diag(s / den) dH and dn <- s_e dn + Q^T (s dd) (the kernel runs
-  it twice, once tiled by C's rows for dk, once by its columns for dv);
+  dk_s += w_s (dC v_s) + w_s dn, dv_s += w_s dC^T k_s, then dC <- s_e dC
+  + Q^T diag(s / den) dH and dn <- s_e dn + Q^T (s dd) (the kernel runs
+  it twice, once tiled by dC's rows for dk, once by its columns for dv).
+  The walks' two products run on the tensor cores in 8-deep steps, each
+  step's partial product formed apart and added to a running sum
+  (:func:`walk_product`, :func:`chunk_update`): M y_t over each warp's
+  ``xw`` columns of M (``ops.mlstm_plan``), the warps' sums added in
+  order; the chunk's update over its four steps, added once to the
+  decayed state, M <- s_e M + U;
 * the gates, per step, without any hd^2 product: with G = dP ⊙ P the
   gradient of log D, its row sum R_t = dh_t . h_t + dd_t d_t = (dh_t .
   h_t)(1 - d den/d|d|) (0 where the clamp does not bind: h is then
@@ -66,7 +76,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.mlstm_scan.ops import mlstm_plan
 from repro_torch.kernels.mlstm_scan.ref import half_at_ties
+
+STEP = 8                                 # depth of one mma.sync m16n8k8
 
 
 def mlstm_chunk_gates(i: torch.Tensor, f: torch.Tensor, chunk: int):
@@ -130,16 +143,53 @@ def mlstm_chunked(q, k, v, i, f, chunk: int):
     return torch.cat(hs, dim=1), torch.cat(dens, dim=1)
 
 
+def walk_product(M, y, xw: int):
+    """(M y_t) (B, L, H, hd) of a walk's chunk, M (B, H, hd, hd) and y
+    (B, L, H, hd): each warp's ``xw`` columns of M in 8-deep steps, every
+    step's product added to the warp's running sum, then the warps' sums
+    added in order."""
+    hd = M.shape[-1]
+    total = None
+    for w0 in range(0, hd, xw):
+        part = None
+        for x0 in range(w0, min(w0 + xw, hd), STEP):
+            sl = slice(x0, min(x0 + STEP, hd))
+            p = torch.einsum("bhrx,bthx->bthr", M[..., sl], y[..., sl])
+            part = p if part is None else part + p
+        total = part if total is None else total + part
+    return total
+
+
+def chunk_update(x, gamma, z):
+    """U = X^T diag(gamma) Z (B, H, hd, hd) of a chunk, x and z (B, L, H,
+    hd), gamma (B, L, H): diag(gamma) X formed first, then the chunk's
+    8-deep steps, each apart, added in order."""
+    gx = gamma[..., None] * x
+    U = None
+    for t0 in range(0, x.shape[1], STEP):
+        sl = slice(t0, t0 + STEP)
+        p = torch.einsum("bshx,bshj->bhxj", gx[:, sl], z[:, sl])
+        U = p if U is None else U + p
+    return U
+
+
 def mlstm_chunked_bwd(q, k, v, i, f, h, dh, chunk: int):
     """``(dq, dk, dv, di, df)`` as ``ref.mlstm_scan_bwd_ref`` computes
     them, through the chunkwise decomposition of the backward kernels."""
     B, S, H, hd = q.shape
+    xw = mlstm_plan(hd).xw
     m, b, s, w = mlstm_chunk_gates(i, f, chunk)
     bounds = [slice(c0, min(c0 + chunk, S)) for c0 in range(0, S, chunk)]
+    decay = [s[:, sl][:, -1] for sl in bounds]               # s_e (B, H)
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
     sd, sdd, R = (torch.empty_like(i) for _ in range(3))
-    n = q.new_zeros((B, H, hd))
-    for sl in bounds:                        # intra, and n before a chunk
+    sums = [torch.einsum("bshx,bhs->bhx", k[:, sl], w[:, sl].transpose(1, 2))
+            for sl in bounds]                # each chunk's K^T w, at once
+    n_prev, n = [], q.new_zeros((B, H, hd))
+    for a, u in zip(decay, sums):            # then n before every chunk
+        n_prev.append(n)
+        n = a[..., None] * n + u
+    for sl, n in zip(bounds, n_prev):        # intra
         qc, kc, vc, hc, dhc = (x[:, sl] for x in (q, k, v, h, dh))
         P = mlstm_intra(qc, kc, i[:, sl], b[:, sl], m[:, sl])  # (B,H,L,L)
         D = mlstm_intra(torch.ones_like(qc[..., :1]),
@@ -154,34 +204,27 @@ def mlstm_chunked_bwd(q, k, v, i, f, h, dh, chunk: int):
         R[:, sl] = (u * (1 - mu)).transpose(1, 2)
         sd[:, sl] = (sc / den).transpose(1, 2)
         sdd[:, sl] = (sc * dd).transpose(1, 2)
-        dS = (torch.einsum("bthx,bshx->bhts", dhc, vc) / den[..., None]
-              + dd[..., None]) * D
+        L = qc.shape[1]
+        causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+        dS = torch.where(causal, (torch.einsum("bthx,bshx->bhts", dhc, vc)
+                                  / den[..., None] + dd[..., None]) * D,
+                         torch.zeros_like(D))
         dq[:, sl] = torch.einsum("bhts,bshx->bthx", dS, kc)
         dk[:, sl] = torch.einsum("bhts,bthx->bshx", dS, qc)
         dv[:, sl] = torch.einsum("bhts,bthx->bshx", P / den[..., None], dhc)
-        a = sc[..., -1]
-        n = a[..., None] * n + torch.einsum(
-            "bshx,bhs->bhx", kc, w[:, sl].transpose(1, 2))
-    C, n = q.new_zeros((B, H, hd, hd)), q.new_zeros((B, H, hd))
-    for sl in bounds:                        # forward walk: dq's inter part
-        dq[:, sl] += sd[:, sl, :, None] * torch.einsum(
-            "bhxj,bthj->bthx", C, dh[:, sl]) \
+    C = q.new_zeros((B, H, hd, hd))
+    for sl, a, n in zip(bounds, decay, n_prev):   # forward walk: dq's inter
+        dq[:, sl] += sd[:, sl, :, None] * walk_product(C, dh[:, sl], xw) \
             + sdd[:, sl, :, None] * n[:, None]
-        a = s[:, sl][:, -1]
-        wc = w[:, sl].transpose(1, 2)
-        C = a[..., None, None] * C + torch.einsum(
-            "bshx,bhs,bshj->bhxj", k[:, sl], wc, v[:, sl])
-        n = a[..., None] * n + torch.einsum("bshx,bhs->bhx", k[:, sl], wc)
+        C = a[..., None, None] * C + chunk_update(k[:, sl], w[:, sl],
+                                                   v[:, sl])
     dC, dn = q.new_zeros((B, H, hd, hd)), q.new_zeros((B, H, hd))
-    for sl in reversed(bounds):              # reverse walk: dk's, dv's
+    for sl, a in zip(reversed(bounds), reversed(decay)):   # reverse walks
         wc = w[:, sl, :, None]
-        dk[:, sl] += wc * (torch.einsum("bhxj,bshj->bshx", dC, v[:, sl])
-                           + dn[:, None])
-        dv[:, sl] += wc * torch.einsum("bhxj,bshx->bshj", dC, k[:, sl])
-        a = s[:, sl][:, -1]
-        dC = a[..., None, None] * dC + torch.einsum(
-            "bthx,bht,bthj->bhxj", q[:, sl], sd[:, sl].transpose(1, 2),
-            dh[:, sl])
+        dk[:, sl] += wc * walk_product(dC, v[:, sl], xw) + wc * dn[:, None]
+        dv[:, sl] += wc * walk_product(dC.transpose(-1, -2), k[:, sl], xw)
+        dC = a[..., None, None] * dC + chunk_update(q[:, sl], sd[:, sl],
+                                                     dh[:, sl])
         dn = a[..., None] * dn + torch.einsum(
             "bthx,bht->bhx", q[:, sl], sdd[:, sl].transpose(1, 2))
     Cs = (k * dk).sum(-1)

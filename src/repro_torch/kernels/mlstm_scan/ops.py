@@ -15,11 +15,14 @@ the state chunk after chunk); :mod:`.chunked` models it in PyTorch for
 the CPU tests.
 
 :func:`mlstm_scan_bwd` wraps the backward kernels of the same file (a
-chunkwise backward: the forward's gates pass, n before every chunk, each
-chunk's intra terms, three walks over the chunks for the inter terms of
-dq, dk and dv, and the gates' gradients from per-step sums, serially);
-its launch count is ``mlstm_scan_bwd.launches``. :mod:`.chunked` models
-it too.
+chunkwise backward: the forward's gates pass; n before every chunk, from
+every chunk's K^T w formed at once and a serial combine; each chunk's
+intra terms, Q K^T and dH V^T on the tensor cores; three walks over the
+chunks for the inter terms of dq, dk and dv, their products on the
+tensor cores; and the gates' gradients from per-step sums, serially);
+its launch count is ``mlstm_scan_bwd.launches``. The walks take the
+inter kernel's ``xw`` (columns of their state a warp) from
+:func:`mlstm_plan`. :mod:`.chunked` models it too.
 
 Each is a ``torch.library`` custom op (``repro_torch::mlstm_scan``,
 ``repro_torch::mlstm_scan_bwd``) with a fake (meta) version, a DTensor
@@ -111,7 +114,8 @@ def scratch_floats(B: int, S: int, H: int) -> int:
 
 def bwd_scratch_floats(B: int, S: int, H: int, hd: int) -> int:
     """Floats of the backward's scratch: m, b, s, w, s / den, s dd, R and
-    Cs per step (padded to whole chunks) and n before every chunk."""
+    Cs per step (padded to whole chunks) and hd per chunk, which hold each
+    chunk's K^T w and then, combined in place, n before every chunk."""
     chunks = -(-S // CHUNK)
     return 8 * B * H * chunks * CHUNK + B * H * chunks * hd
 

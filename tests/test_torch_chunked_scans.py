@@ -16,7 +16,10 @@ of one, and long.
   ``slstm_chunked_bwd``) against the plain backwards (``ref.py``) within
   BWD_RTOL of each gradient's largest entry, at forget biases +3 (the
   blocks' init), +6 and +10 (long memory), the mLSTM also where its clamp
-  binds; at S = 1 the gate gradients are 0 exactly, as the loop's are.
+  binds (at S not a multiple of its chunk) and, at +6 and +10, against
+  the float64 backward as the kernel is held on the card; at S = 1 the
+  gate gradients are 0 exactly, as the loop's are. The mLSTM walks'
+  products in 8-deep steps against the whole products.
 """
 import numpy as np
 import pytest
@@ -24,9 +27,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.mlstm_scan.chunked import (  # noqa: E402
-    mlstm_chunk_gates, mlstm_chunked, mlstm_chunked_bwd)
+    chunk_update, mlstm_chunk_gates, mlstm_chunked, mlstm_chunked_bwd,
+    walk_product)
+from repro_torch.kernels.mlstm_scan.ops import mlstm_plan  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
-    mlstm_scan_bwd_ref, mlstm_scan_exact, mlstm_scan_ref, mlstm_step)
+    mlstm_scan_bwd_exact, mlstm_scan_bwd_ref, mlstm_scan_exact,
+    mlstm_scan_ref, mlstm_step)
 from repro_torch.kernels.slstm_scan.chunked import (  # noqa: E402
     slstm_chunked, slstm_chunked_bwd)
 from repro_torch.kernels.slstm_scan.ref import (  # noqa: E402
@@ -223,6 +229,59 @@ def test_mlstm_chunked_bwd_where_the_clamp_binds():
     dh = _rand(rng, *h.shape)
     _grads_close(mlstm_chunked_bwd(*args, h, dh, BWD_CHUNKS["mlstm"]),
                  mlstm_scan_bwd_ref(*args, h, dh))
+
+
+@pytest.mark.parametrize("S", [45, 333, 1000])
+def test_mlstm_chunked_bwd_clamp_binds_at_unaligned_lengths(S):
+    """The backward's model (n before every chunk from the per-chunk
+    sums, the walks' 8-deep steps added once to the decayed state) where
+    the clamp binds at most steps and S is not a multiple of the chunk."""
+    rng = np.random.default_rng(11 + S)
+    args = _mlstm_inputs(rng, S, spikes=6.0)
+    h, den = mlstm_chunked(*args, BWD_CHUNKS["mlstm"])
+    assert float((den.abs() < 1).float().mean()) > 0.5
+    dh = _rand(rng, *h.shape)
+    _grads_close(mlstm_chunked_bwd(*args, h, dh, BWD_CHUNKS["mlstm"]),
+                 mlstm_scan_bwd_ref(*args, h, dh))
+
+
+@pytest.mark.parametrize("forget_bias", LONG_MEMORY_BIASES)
+def test_mlstm_chunked_bwd_with_long_memory(forget_bias):
+    """Forget gates near 1 over 1,000 steps: each gradient of the model no
+    farther from ``ref.mlstm_scan_bwd_exact`` (float64, the fp32 loop's
+    m) than the larger of BWD_RTOL and the fp32 plain backward's own
+    distance (the rule the kernel is held to on the card)."""
+    rng = np.random.default_rng(1000 + int(forget_bias))
+    args = _mlstm_inputs(rng, 1000, forget_bias=forget_bias)
+    h = mlstm_scan_ref(*args)
+    dh = _rand(rng, *h.shape)
+    got = mlstm_chunked_bwd(*args, h, dh, BWD_CHUNKS["mlstm"])
+    loop = mlstm_scan_bwd_ref(*args, h, dh)
+    for a, b, e in zip(got, loop, mlstm_scan_bwd_exact(*args, dh)):
+        top = float(e.abs().max())
+        ours = float((a.double() - e).abs().max()) / top
+        plain = float((b.double() - e).abs().max()) / top
+        assert ours <= max(BWD_RTOL, plain), (ours, plain)
+
+
+@pytest.mark.parametrize("hd", [1, 16, 33, 100, 200])
+def test_mlstm_walk_steps_add_up_to_the_products(hd):
+    """The walks' products in 8-deep steps (M y_t over each warp's
+    columns of M, the chunk's update X^T diag(gamma) Z over its four
+    steps) against the whole products in float64, at head widths that
+    are not multiples of a step or of a warp's columns."""
+    rng = np.random.default_rng(hd)
+    M = _rand(rng, 2, 3, hd, hd)
+    x, y, z = (_rand(rng, 2, 32, 3, hd) for _ in range(3))
+    gamma = _rand(rng, 2, 32, 3)
+    got = walk_product(M, y, mlstm_plan(hd).xw)
+    ref = torch.einsum("bhrx,bthx->bthr", M.double(), y.double())
+    assert got.shape == ref.shape
+    assert _rel(got.double(), ref) <= 1e-6
+    got = chunk_update(x, gamma, z)
+    ref = torch.einsum("bshx,bsh,bshj->bhxj", x.double(), gamma.double(),
+                       z.double())
+    assert _rel(got.double(), ref) <= 1e-6
 
 
 @pytest.mark.parametrize("kind", BWD_LENGTHS)

@@ -741,6 +741,47 @@ def test_cuda_mlstm_scan_bwd_long_memory(forget_bias):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("operand", ["k", "q"])
+def test_cuda_mlstm_scan_bwd_non_finite_step(operand):
+    """k_s (or q_t) of one step set to inf in one (row, head), at
+    xlstm_1_3b's head: the kernel's gradients are non-finite exactly where
+    the plain backward's are (its products against the causal matrices
+    skip the masked half, so no masked 0 meets the inf; dq before a
+    non-finite k_s stays finite), and agree within BWD_RTOL elsewhere."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_ref
+    _, mops, _ = _scan_ops()
+    dev = _card()
+    args = _mlstm_case(1, 100, 2, 512, dev)
+    args["qk".index(operand)][0, 37, 0] = float("inf")
+    h = mops.mlstm_scan(*args)
+    dh = torch.randn(h.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(11))
+    got = mops.mlstm_scan_bwd(*args, h, dh)
+    ref = mlstm_scan_bwd_ref(*args, h, dh)
+    assert not bool(torch.isfinite(ref[0]).all())
+    for name, a, b in zip("qkvif", got, ref):
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin), name
+        err = float((a[fin].double() - b[fin].double()).abs().max())
+        assert err <= BWD_RTOL * float(b[fin].abs().max()), (name, err)
+
+
+@pytest.mark.gpu
+def test_cuda_mlstm_scan_bwd_fewer_blocks_than_sms():
+    """B = 1, H = 1 at xlstm_1_3b's head and S = 4096: 16 blocks of each
+    walk on the card's 132 SMs, each walking 128 chunks."""
+    from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_ref
+    _, mops, _ = _scan_ops()
+    dev = _card()
+    args = _mlstm_case(1, 4096, 1, 512, dev)
+    h = mops.mlstm_scan(*args)
+    dh = torch.randn(h.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(5))
+    got = mops.mlstm_scan_bwd(*args, h, dh)
+    _grads_close(got, mlstm_scan_bwd_ref(*args, h, dh))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,d", SLSTM_SHAPES)
 def test_cuda_slstm_scan_bwd_matches_plain_version(B, S, d):
     from repro_torch.kernels.slstm_scan.ref import slstm_scan_bwd_ref
