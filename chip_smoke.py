@@ -159,8 +159,9 @@ H100; the kernels are built for sm_90a). Phases:
      plain backward, and both at +10 over 8 seeds of the draw (printed,
      the backward's beside the forward's); each kernel timed at B=2,
      S=4096 by CUDA events and torch.profiler beside its bound and its
-     plain version. Each path with every
-     launch count set to 0 just before and read just after:
+     plain version (the RG-LRU's two also with their achieved GB/s).
+     Each path with every launch count set to 0 just before and read
+     just after:
      recurrentgemma_2b at full width (26 layers, bf16, unscanned),
      ``lm.forward`` at B=2, S=4096 without autograd, one ``rglru_scan``
      per RG-LRU block, bitwise to the same forward through the plain
@@ -3041,10 +3042,15 @@ def scan_device_ms(out: dict, profiled: dict, per_window: dict) -> None:
             row = out["scan_time"][k]
             row["device_ms"] = None if ms is None else ms / per_window[k]
             dev = row["device_ms"]
+            if dev and row["bound_by"] == "bytes":
+                row["device_gb_per_s"] = (row["bound_ms"] * HBM_BYTES_PER_S
+                                          / dev / 1e9)
             print(f"[scan] {k} device_only_ms={dev!r} per launch (profiled "
                   f"path, {per_window[k]} launches) bound_ms="
                   f"{row['bound_ms']!r} device_bound_share="
                   f"{row['bound_ms'] / dev if dev else None!r}"
+                  + (f" device_gb_per_s={row['device_gb_per_s']!r}"
+                     if "device_gb_per_s" in row else "")
                   + (f" 3xtf32_bound_share="
                      f"{row['bound_ms_3xtf32'] / dev if dev else None!r}"
                      if "bound_ms_3xtf32" in row else ""))

@@ -586,9 +586,9 @@ mlstm_scan_fwd_inter(const float* __restrict__ q, const float* __restrict__ k,
     cp_commit();
     if (more) store_v(u ^ 1);
 
+    cp_wait<2>();                        // k(c), which the partial sums
+    __syncwarp();                        // overwrite even in the last chunk
     if (more) {                          // this warp's rows of C and n
-      cp_wait<2>();                      // k(c)
-      __syncwarp();
       const float a = sb.sv[Lc - 1];     // s at the chunk's end
       // C (XW x T) = a C + K^T diag(w) V over this warp's rows x, as
       // MT x 4 m16n8 tiles kept in registers from chunk to chunk, and

@@ -23,11 +23,18 @@ DTensors see one op per block, not one per time step:
 * a FLOP count for ``FlopCounterMode``: ``12 B S d`` forward, the
   per-block term of ``launch/roofline.py``'s recurrent FLOPs, and twice
   that backward (the roofline counts a backward as two forwards).
+
+:func:`rglru_plan` chooses the kernels' launch plan here, where the CPU
+tests can check it: one block of one warp per (batch row, 32 channels),
+each lane walking one channel through every step, fed through a ring of
+tiles in shared memory (``FWD_RING``, ``BWD_RING``: steps a tile, tiles;
+a tile no longer than S rounded up to 4 steps); 16-byte copies where
+``d % 4 == 0`` and every pointer is 16-byte aligned, else 4-byte copies.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -38,8 +45,57 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                 rglru_scan_ref)
 
-_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+LANES = 32                               # channels a block, one a lane
+# (steps a tile, tiles in the ring) forward and backward: within 2 % of
+# the fastest rings of a sweep on an H100 (PERF.md §6); their blocks fit
+# two to an SM (dynamic shared memory <= 113 KB)
+FWD_RING = (128, 3)
+BWD_RING = (112, 2)
+GRID_Y_MAX = 65535
+
+_FWD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+class RglruPlan(NamedTuple):
+    """Launch plan of one ``rglru_scan`` or ``rglru_scan_bwd`` call: the
+    grid ``(rows, groups)`` of one-warp blocks, block ``(x, y)`` walking
+    channels ``[32 y, 32 y + 32)`` of batch row ``x``; tiles of ``tile``
+    steps of each input, ``stages`` of them in the ring;
+    ``smem`` the dynamic shared bytes (``(stages x ins + outs) x tile x
+    32`` floats: forward the ring of a and b and h's tile, backward the
+    ring of dh, a and h and the tiles of da and db); ``vec`` 16-byte
+    copies, else 4-byte. The kernel checks it against its own layout."""
+    groups: int
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+    vec: bool
+
+
+def rglru_plan(B: int, S: int, d: int, backward: bool = False,
+               aligned: bool = True) -> RglruPlan:
+    """The plan of a (B, S, d) scan: ``backward`` for ``rglru_scan_bwd``,
+    ``aligned`` when every operand's pointer is 16-byte aligned. Raises
+    on what the kernels cannot hold."""
+    if min(B, S, d) < 1:
+        raise ValueError(f"rglru_plan takes B, S, d >= 1, got {(B, S, d)}")
+    groups = -(-d // LANES)
+    if groups > GRID_Y_MAX:
+        raise ValueError(f"rglru_scan grid (B, groups={groups}) exceeds "
+                         f"CUDA's limit of {GRID_Y_MAX} groups of 32 "
+                         f"channels")
+    tile, stages = BWD_RING if backward else FWD_RING
+    tile = min(tile, -(-S // 4) * 4)
+    ins, outs = (3, 2) if backward else (2, 1)
+    return RglruPlan(groups, B, tile, stages,
+                     (stages * ins + outs) * tile * LANES * 4,
+                     d % 4 == 0 and aligned)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check(op: str, *ts: torch.Tensor) -> None:
@@ -65,19 +121,33 @@ def _device(op: str, t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _launch(op: str, ts: Tuple[torch.Tensor, ...], plan: RglruPlan) -> None:
+    """Launch the kernel of ``op`` on CUDA operands ``ts`` by ``plan``:
+    ``"rglru_scan"`` (a, b, h) or ``"rglru_scan_bwd"`` (a, h, dh, da,
+    db), outputs last; adds one to the op's launch count."""
+    B, S, d = ts[0].shape
+    symbol, args = {"rglru_scan": ("rglru_scan_fwd_launch", _FWD_ARGS),
+                    "rglru_scan_bwd": ("rglru_scan_bwd_launch",
+                                       _BWD_ARGS)}[op]
+    fn = build.entry("rglru_scan", symbol, args)
+    dev = ts[0].device
+    with torch.cuda.device(dev):
+        status = fn(*(t.data_ptr() for t in ts), B, S, d, plan.groups,
+                    plan.tile, plan.stages, plan.smem, int(plan.vec),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, op)
+    (rglru_scan if op == "rglru_scan" else rglru_scan_bwd).launches += 1
+
+
 @torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
 def _rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check("rglru_scan", a, b)
     if _device("rglru_scan", a) == "cpu":
         return rglru_scan_ref(a, b)
     h = torch.empty_like(b)
-    B, S, d = b.shape
-    fn = build.entry("rglru_scan", "rglru_scan_fwd_launch", _FWD_ARGS)
-    with torch.cuda.device(a.device):
-        status = fn(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, S, d,
-                    torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(status, "rglru_scan")
-    rglru_scan.launches += 1
+    if h.numel():
+        _launch("rglru_scan", (a, b, h),
+                rglru_plan(*b.shape, aligned=_aligned(a, b, h)))
     return h
 
 
@@ -94,14 +164,10 @@ def _rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
     if _device("rglru_scan_bwd", a) == "cpu":
         return rglru_scan_bwd_ref(a, h, dh)
     da, db = torch.empty_like(a), torch.empty_like(a)
-    B, S, d = a.shape
-    fn = build.entry("rglru_scan", "rglru_scan_bwd_launch", _BWD_ARGS)
-    with torch.cuda.device(a.device):
-        status = fn(a.data_ptr(), h.data_ptr(), dh.data_ptr(),
-                    da.data_ptr(), db.data_ptr(), B, S, d,
-                    torch.cuda.current_stream(a.device).cuda_stream)
-    build.check(status, "rglru_scan_bwd")
-    rglru_scan_bwd.launches += 1
+    ts = (a, h, dh, da, db)
+    if da.numel():
+        _launch("rglru_scan_bwd", ts,
+                rglru_plan(*a.shape, backward=True, aligned=_aligned(*ts)))
     return da, db
 
 

@@ -508,6 +508,14 @@ SCAN_RTOL = 4e-6
 # prefetch, recurrentgemma_2b's and xlstm_1_3b's widths
 ELEMENTWISE_SCAN_SHAPES = [(2, 1, 64), (3, 37, 64), (2, 300, 2560),
                            (2, 129, 2048)]
+# the RG-LRU's rings (tiles of 128 steps forward, 112 backward) besides:
+# S around a tile of either, d not a multiple of 32 or of 4 (4-byte
+# copies), many tiles at recurrentgemma_2b's width and length, and more
+# rows than grid.y's 65535 (the grid has one dimension)
+RGLRU_SHAPES = ELEMENTWISE_SCAN_SHAPES + [
+    (2, 64, 64), (2, 65, 64), (1, 65, 33), (2, 1000, 100), (2, 4096, 2560),
+    (2, 112, 64), (1, 113, 33), (2, 128, 64), (1, 129, 100),
+    (70000, 3, 32)]
 # the sLSTM's chunked scan (64-step chunks) besides: one chunk exactly,
 # one step past it, S not a multiple of it, many chunks at full width
 SLSTM_SHAPES = ELEMENTWISE_SCAN_SHAPES + [(2, 64, 64), (1, 65, 100),
@@ -533,7 +541,7 @@ def _rel(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,d", ELEMENTWISE_SCAN_SHAPES)
+@pytest.mark.parametrize("B,S,d", RGLRU_SHAPES)
 def test_cuda_rglru_scan_forward_and_backward_bitwise(B, S, d):
     from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                     rglru_scan_ref)
@@ -551,6 +559,34 @@ def test_cuda_rglru_scan_forward_and_backward_bitwise(B, S, d):
         (n0 + 1, m0 + 1)
     assert torch.equal(h, rglru_scan_ref(a, b))
     rda, rdb = rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(da, rda) and torch.equal(db, rdb)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_unaligned_operands_bitwise():
+    """Operands one float into their buffers: d % 4 == 0, but the plan
+    takes 4-byte copies."""
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+    rops, _, _ = _scan_ops()
+    dev = _card()
+    B, S, d = 2, 130, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def off(x):
+        buf = torch.empty(x.numel() + 1, device=dev)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+    a = off(torch.rand((B, S, d), generator=g, device=dev) * 0.99 + 0.005)
+    b, dh = (off(torch.randn((B, S, d), generator=g, device=dev))
+             for _ in range(2))
+    assert not rops.rglru_plan(B, S, d, aligned=a.data_ptr() % 16 == 0).vec
+    h = rops.rglru_scan(a, b)
+    href = rglru_scan_ref(a, b)
+    assert torch.equal(h, href)
+    da, db = rops.rglru_scan_bwd(a, off(href), dh)
+    rda, rdb = rglru_scan_bwd_ref(a, href, dh)
     assert torch.equal(da, rda) and torch.equal(db, rdb)
 
 

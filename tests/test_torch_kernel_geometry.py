@@ -12,7 +12,12 @@ after the element it reads, and a combine's rows fit one block's shared
 memory. Emulations of the chain kernel's schedule (warp decode, lane
 skew, wavefront steps) and of the combine kernel's (per-thread folds,
 the lexicographic block reduction, the backtrace) reproduce the plain
-versions bit for bit.
+versions bit for bit. The RG-LRU scans' plan
+(``kernels/rglru_scan/ops.py::rglru_plan``) puts every (row, channel) on
+one lane and its ring in shared memory, and an emulation of the kernels'
+tile schedule (the ring's stages, each lane's copies, the backward's
+shifted a and h tiles and its edge rules) copies every input element
+once, writes every output once and equals the plain loops bit for bit.
 """
 import math
 
@@ -28,6 +33,9 @@ from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
 from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
 from repro_torch.kernels.lut_pipeline.ref import tie_heavy_rows  # noqa: E402
 from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    rglru_scan_bwd_ref, rglru_scan_ref)
 
 # M, K, N: decode shapes, the library-call shape, prefill, the ragged
 # shapes of the card tests, and K around the 64-row step
@@ -370,3 +378,254 @@ def test_combine_plan_shared_memory_and_its_limit():
         lops.combine_plan(2, 2, 33, 2 ** 16)
     with pytest.raises(ValueError, match="C >= 1"):
         lops.combine_plan(1, 0, 3, 4)
+
+
+# -- the RG-LRU scans: one lane per (row, channel), a ring of tiles -------
+
+SM_SMEM = 233472                         # bytes of an H100 SM's shared memory
+BLOCK_RESERVED = 1024                    # of it the card keeps per block
+BLOCK_SMEM = 232448                      # bytes a block can have
+
+
+@pytest.mark.parametrize("B,S,d", [(2, 4096, 2560), (1, 65, 33),
+                                   (2, 1000, 100), (3, 1, 1), (1, 7, 64),
+                                   (5, 300, 2048)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_rglru_plan_covers_every_row_and_channel_once(B, S, d, backward):
+    p = rops.rglru_plan(B, S, d, backward=backward)
+    assert p.rows == B and p.groups == math.ceil(d / rops.LANES)
+    cover = np.zeros((B, p.groups * rops.LANES), dtype=int)
+    for x in range(p.rows):                  # grid (rows, groups)
+        for y in range(p.groups):
+            cover[x, y * rops.LANES:(y + 1) * rops.LANES] += 1
+    # lanes past d copy and write nothing
+    assert (cover[:, :d] == 1).all() and p.groups * rops.LANES - d < 32
+
+
+def test_rglru_plan_fills_the_card_and_fits_shared_memory():
+    fwd = rops.rglru_plan(2, 4096, 2560)
+    bwd = rops.rglru_plan(2, 4096, 2560, backward=True)
+    # recurrentgemma_2b's width at B = 2: 160 blocks over the 132 SMs
+    assert fwd.groups * fwd.rows == bwd.groups * bwd.rows == 160 >= 132
+    assert (fwd.tile, fwd.stages) == rops.FWD_RING == (128, 3)
+    assert (bwd.tile, bwd.stages) == rops.BWD_RING == (112, 2)
+    # the ring of a and b and h's tile; the ring of dh, a, h, da's and
+    # db's tiles
+    assert fwd.smem == (3 * 2 + 1) * 128 * 32 * 4 == 114688
+    assert bwd.smem == (2 * 3 + 2) * 112 * 32 * 4 == 114688
+    assert fwd.smem > 48 * 1024 and bwd.smem > 48 * 1024
+    # two blocks fit an SM beside the card's reserve, each direction
+    for p in (fwd, bwd):
+        assert p.smem <= BLOCK_SMEM
+        assert 2 * (p.smem + BLOCK_RESERVED) <= SM_SMEM
+    assert fwd.vec and bwd.vec
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 33, 63, 64, 100, 2560])
+def test_rglru_plan_copies_16_bytes_only_where_they_are_aligned(d):
+    assert rops.rglru_plan(2, 100, d).vec == (d % 4 == 0)
+    assert not rops.rglru_plan(2, 100, d, aligned=False).vec
+    assert not rops.rglru_plan(2, 100, d, backward=True,
+                               aligned=False).vec
+
+
+def test_rglru_plan_rejects_what_the_kernels_cannot_hold():
+    for shape in [(2, 0, 64), (0, 10, 64), (2, 10, 0)]:
+        with pytest.raises(ValueError, match="B, S, d >= 1"):
+            rops.rglru_plan(*shape)
+    # grid (B, groups): B past grid.y's 65535 is held, d up to 65535
+    # groups of 32 channels
+    p = rops.rglru_plan(65536, 10, 64)
+    assert (p.rows, p.groups) == (65536, 2)
+    assert rops.rglru_plan(1, 10, 65535 * 32).groups == 65535
+    with pytest.raises(ValueError, match="CUDA's limit"):
+        rops.rglru_plan(1, 10, 65535 * 32 + 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_rglru_plan_fits_the_tile_to_short_sequences(backward):
+    """A tile no longer than S rounded up to 4 steps: a short prefill
+    reserves the shared memory of its own steps, not a whole ring's."""
+    L, stages = rops.BWD_RING if backward else rops.FWD_RING
+    ins, outs = (3, 2) if backward else (2, 1)
+    for S, tile in [(1, 4), (4, 4), (5, 8), (L - 1, L), (L, L),
+                    (L + 1, L), (4096, L)]:
+        p = rops.rglru_plan(2, S, 64, backward=backward)
+        assert (p.tile, p.stages) == (tile, stages)
+        assert p.smem == (stages * ins + outs) * tile * 32 * 4
+        assert p.tile >= S or p.tile == L
+
+
+def _copy_counts(p, d):
+    """How many of one block's lanes copy each float of a tile (tile rows
+    x the groups' channels), as ``load_tile`` copies them, before the
+    steps outside [0, S) are dropped."""
+    n = np.zeros((p.tile, p.groups * 32), dtype=int)
+    for x in range(p.groups):
+        c0 = 32 * x
+        for lane in range(32):
+            if p.vec:
+                col = c0 + (lane & 7) * 4
+                if col < d:
+                    n[lane >> 3::4, col:col + 4] += 1
+            elif c0 + lane < d:
+                n[:, c0 + lane] += 1
+    return n
+
+
+def _load(stage, x, t0, end, counts, copied):
+    """One input's tile at step t0 into a stage (B, tile, W): row r holds
+    step t0 + r where the lanes copy it and 0 <= t0 + r < end;
+    ``copied`` (S, W) counts the copies of each element."""
+    for r in range(counts.shape[0]):
+        t = t0 + r
+        if 0 <= t < end:
+            m = counts[r] > 0
+            stage[:, r, torch.from_numpy(m)] = x[:, t, torch.from_numpy(m)]
+            copied[t] += counts[r]
+
+
+def _store(tile, y, t0, n, counts, written):
+    """``store_tile``: the first n rows of an output tile (B, tile, W) to
+    steps t0 .. t0 + n - 1 of ``y`` (B, S, W), where the lanes copy;
+    ``written`` (S, W) counts the writes of each element."""
+    for r in range(n):
+        m = torch.from_numpy(counts[r] > 0)
+        y[:, t0 + r, m] = tile[:, r, m]
+        written[t0 + r] += counts[r]
+
+
+def _pad(x, W):
+    return torch.nn.functional.pad(x, (0, W - x.shape[2]),
+                                   value=float("nan"))
+
+
+def _emulate_rglru(p, ins, arrays_at, walk):
+    """The kernels' ring: ``stages`` stages of len(ins) tiles, NaN until
+    copied, the j-th tile fetched at ``arrays_at(j)`` (one (t0, end) per
+    input: steps [t0, t0 + tile) clipped to [0, end)) before the walk of
+    tile j - stages + 1 and after that of the tile before it;
+    ``walk(j, tiles, counts)`` runs the j-th tile and stores it. Returns
+    each input's copy counts within d and past it."""
+    B, S, d = ins[0].shape
+    W = p.groups * 32
+    counts = _copy_counts(p, d)
+    xs = [_pad(x, W) for x in ins]
+    ring = torch.full((p.stages, len(ins), B, p.tile, W), float("nan"))
+    copied = np.zeros((len(ins), S, W), dtype=int)
+    nt = -(-S // p.tile)
+
+    def fetch(j):
+        if j < nt:
+            for i, (x, (t0, end)) in enumerate(zip(xs, arrays_at(j))):
+                _load(ring[j % p.stages, i], x, t0, end, counts, copied[i])
+    for j in range(p.stages - 1):
+        fetch(j)
+    for j in range(nt):
+        fetch(j + p.stages - 1)                # into tile j - 1's stage
+        walk(j, ring[j % p.stages], counts)
+    return copied[:, :, :d], copied[:, :, d:]
+
+
+def _emulate_rglru_fwd(a, b, p):
+    """The forward: each tile walked lane by lane into h's tile (kept
+    from tile to tile, NaN at first), then stored."""
+    B, S, d = a.shape
+    L, W = p.tile, p.groups * 32
+    h = torch.full((B, S, W), float("nan"))
+    th = torch.full((B, L, W), float("nan"))
+    written = np.zeros((S, W), dtype=int)
+    live = torch.arange(W) < d
+    state = {"h": torch.zeros(B, W)}
+
+    def walk(k, tiles, counts):
+        ta, tb = tiles
+        n = min(L, S - k * L)
+        for r in range(n):
+            state["h"] = ta[:, r] * state["h"] + tb[:, r]
+            th[:, r, live] = state["h"][:, live]
+        _store(th, h, k * L, n, counts, written)
+    copied, past = _emulate_rglru(p, [a, b], lambda k: [(k * L, S)] * 2,
+                                  walk)
+    return h[..., :d], copied, past, written
+
+
+def _emulate_rglru_bwd(a, h, dh, p):
+    """The backward: tiles from the end of time, each walked from its
+    last row into da's and db's tiles, then stored."""
+    B, S, d = a.shape
+    L, W = p.tile, p.groups * 32
+    nt = -(-S // L)
+    da = torch.full((B, S, W), float("nan"))
+    db = torch.full((B, S, W), float("nan"))
+    tda = torch.full((B, L, W), float("nan"))
+    tdb = torch.full((B, L, W), float("nan"))
+    written = np.zeros((S, W), dtype=int)
+    live = torch.arange(W) < d
+    state = {"g": torch.zeros(B, W)}
+
+    def walk(j, tiles, counts):
+        tdh, tnext, tprev = tiles              # dh_t, a_{t+1}, h_{t-1}
+        t0 = (nt - 1 - j) * L
+        n = min(L, S - t0)
+        for r in range(n - 1, -1, -1):
+            t = t0 + r
+            g = (tdh[:, r] + tnext[:, r] * state["g"] if t + 1 < S
+                 else tdh[:, r])
+            state["g"] = g
+            hp = tprev[:, r] if t > 0 else torch.zeros(B, W)
+            tda[:, r, live] = (g * hp)[:, live]
+            tdb[:, r, live] = g[:, live]
+        _store(tda, da, t0, n, counts, written)
+        _store(tdb, db, t0, n, counts, written)
+
+    def at(j):
+        t0 = (nt - 1 - j) * L
+        return (t0, S), (t0 + 1, S), (t0 - 1, S - 1)
+    copied, past = _emulate_rglru(p, [dh, a, h], at, walk)
+    return da[..., :d], db[..., :d], copied, past, written
+
+
+# S = 1, one step short of a tile, a tile, one step past it (either
+# direction's tile), many tiles
+_LS = sorted({rops.FWD_RING[0], rops.BWD_RING[0]})
+RGLRU_EMULATION_CASES = [(S, d) for S in sorted({1, 1000} | {
+                             L + e for L in _LS for e in (-1, 0, 1)})
+                         for d in (1, 33, 64, 100)]
+
+
+@pytest.mark.parametrize("S,d", RGLRU_EMULATION_CASES)
+def test_rglru_tile_schedule_equals_the_plain_loops_bitwise(S, d):
+    rng = np.random.default_rng(S * 7 + d)
+    B = 2
+    a = torch.from_numpy(rng.uniform(0.005, 0.995, (B, S, d))
+                         .astype(np.float32))
+    b, dh = (torch.from_numpy(rng.standard_normal((B, S, d))
+                              .astype(np.float32)) for _ in range(2))
+    h_ref = rglru_scan_ref(a, b)
+    da_ref, db_ref = rglru_scan_bwd_ref(a, h_ref, dh)
+    plans = {(rops.rglru_plan(B, S, d, backward=bw, aligned=al), bw)
+             for bw in (False, True) for al in (True, False)}
+    if S == 1000:                             # the shallowest ring too
+        for bw in (False, True):
+            p = rops.rglru_plan(B, S, d, backward=bw)
+            ins, outs = (3, 2) if bw else (2, 1)
+            plans.add((rops.RglruPlan(p.groups, p.rows, p.tile, 2,
+                                      (2 * ins + outs) * p.tile * 32 * 4,
+                                      p.vec), bw))
+    for p, backward in sorted(plans):
+        if not backward:
+            h, copied, past, written = _emulate_rglru_fwd(a, b, p)
+            assert torch.equal(h, h_ref), p
+            assert (copied == 1).all()        # a and b, every element once
+        else:
+            da, db, copied, past, written = _emulate_rglru_bwd(a, h_ref,
+                                                               dh, p)
+            assert torch.equal(da, da_ref) and torch.equal(db, db_ref), p
+            assert (copied[0] == 1).all()     # dh
+            # a_{t+1} from t = 1 on; h_{t-1} up to t = S - 2
+            assert (copied[1, 1:] == 1).all() and (copied[1, :1] == 0).all()
+            assert (copied[2, :-1] == 1).all() and (copied[2, -1] == 0).all()
+        assert (past == 0).all()              # nothing past d is copied
+        outs = 2 if backward else 1           # every output once, within d
+        assert (written[:, :d] == outs).all() and (written[:, d:] == 0).all()
