@@ -432,6 +432,37 @@ def synthetic_c5_inputs(seed: int = 5):
 
 # -- phases ----------------------------------------------------------------
 
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes of each scan kernel in an ``nvcc -Xptxas
+    -v`` log, by the kernel's name (``<true>``/``<false>`` for a template
+    instance on one bool)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(?:slstm|mlstm|rglru)_scan_(?:fwd|bwd)"
+                          r"(?:_[a-z]+)?(ILb[01]E)?", m.group(1))
+            name = None if k is None else (
+                k.group(0).split("ILb")[0]
+                + {"ILb1E": "<true>", "ILb0E": "<false>", None: ""}[
+                    k.group(1)])
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(out: dict) -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -446,6 +477,10 @@ def phase_build(out: dict) -> None:
             if ("ptxas" in line or "spill" in line
                     or "error" in line.lower()):
                 print(f"[build]   {line.strip()}")
+        rec["ptxas"] = ptxas_kernels(rec["log"])
+        if rec["ptxas"]:
+            print(f"[build] {name}'s scan kernels, registers and spill "
+                  f"bytes: {rec['ptxas']}")
     out["build"] = info
 
 
@@ -2918,7 +2953,9 @@ def scan_long_memory_bwd(rows: dict, gen) -> None:
     of its plain version; the mLSTM's against ``mlstm_scan_bwd_exact``
     (float64 given the fp32 loop's m), no farther from it than the larger
     of BWD_RTOL and the fp32 plain backward's own distance, both
-    printed; then the mLSTM's seed sweep at +10 (``mlstm_bwd_seed_sweep``)."""
+    printed; the sLSTM's twice, bitwise equal; then the mLSTM's seed
+    sweep at +10 (``mlstm_bwd_seed_sweep``)."""
+    import torch
     from repro_torch.kernels.mlstm_scan.ref import mlstm_scan_bwd_exact
     names = {"mlstm_scan_bwd": "q k v i f", "slstm_scan_bwd": "z i f o"}
     for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
@@ -2947,6 +2984,13 @@ def scan_long_memory_bwd(rows: dict, gen) -> None:
                     row[name] = dict(to_loop=rel)
                     require(rel <= BWD_RTOL, f"{kind} +{bias} d{name}: "
                             f"{rel}")
+            if kind == "slstm_scan_bwd":   # a fixed order of every sum
+                again = kern(*args)
+                row["bitwise_repeat"] = all(torch.equal(a, b)
+                                            for a, b in zip(got, again))
+                require(row["bitwise_repeat"], f"{kind} +{bias}: two "
+                        f"launches on the same inputs differ")
+                del again
             print(f"[scan] {kind} {shape} forget bias +{bias}, of each "
                   f"gradient's largest |entry| (held: the mLSTM's to_exact "
                   f"within max({BWD_RTOL}, loop_to_exact), the sLSTM's "
@@ -3124,7 +3168,8 @@ def scan_kernel_parts(prof: dict) -> dict:
     name (an op's kernels share the op's prefix: ``mlstm_scan_fwd_gates``,
     ``_intra``, ``_inter``; ``mlstm_scan_bwd_gates``, ``_nsum``,
     ``_ncombine``, ``_intra``, ``_walk``, ``_dots``, ``_dgates``;
-    ``slstm_scan_fwd_local``, ``_combine``, ``_apply``)."""
+    ``slstm_scan_fwd_local``, ``_combine``, ``_apply``;
+    ``slstm_scan_bwd_states``, ``_incoming``, ``_chain``)."""
     parts: dict = {}
     for name, ms in prof["by_name"].items():
         for k in SCAN_KERNELS:
@@ -3340,7 +3385,33 @@ def recurrent_train(arch: str, card: str, out: dict) -> None:
     scan_device_ms(out, {k: v for k, v in prof["scan_device_ms"].items()
                          if k.endswith("_bwd")},
                    {k: v // steps for k, v in rec["expected"].items()})
+    for k, n in rec["expected"].items():
+        if k.endswith("_bwd") and n:
+            backward_parts(k, prof["scan_kernel_ms"], n // steps, out)
     out[f"{arch}_train"] = rec
+
+
+def backward_parts(kind: str, parts: dict, launches: int, out: dict) -> None:
+    """A backward scan's device ms a launch by CUDA kernel in a profiled
+    training step (``launches`` of it there), beside its bound at the
+    main path's shape: the op's GB/s and share of the bound, and each
+    kernel's ms and part of the op's time."""
+    mine = {k: v / launches for k, v in parts.items()
+            if k.startswith(SCAN_KERNEL_NAMES[kind])}
+    total = sum(mine.values())
+    if not total:
+        return
+    bound, by = scan_bound_ms(kind, scan_shapes(kind, SCAN_S)[1])
+    gbs = bound * HBM_BYTES_PER_S / total / 1e9 if by == "bytes" else None
+    row = dict(device_ms=total, bound_ms=bound, bound_by=by,
+               device_bound_share=bound / total, device_gb_per_s=gbs,
+               by_kernel_ms=mine,
+               by_kernel_part={k: v / total for k, v in mine.items()})
+    print(f"[scan] {kind} in the profiled step, a launch: device {total!r} "
+          f"ms, bound {bound!r} ms ({by}), share {bound / total!r}, "
+          f"{gbs!r} GB/s at the bound's bytes; by CUDA kernel "
+          f"{mine} (parts {row['by_kernel_part']})")
+    out.setdefault("backward_parts", {})[kind] = row
 
 
 # the 2-layer fp32 gradients against the CPU: (overrides, S, loss rtol,

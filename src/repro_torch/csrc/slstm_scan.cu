@@ -55,6 +55,9 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -282,254 +285,495 @@ extern "C" int slstm_scan_launch(const void* z, const void* i, const void* f,
 // ms at 3.35 TB/s.
 //
 // Design: given the states, a step of the backward is linear in the
-// gradients it carries back, (dc, dn, dm), so the forward's chunked scan
-// over time runs backwards, in chunks of BC = 16 steps, a thread per
-// (row, chunk, unit):
-//  1. slstm_scan_bwd_states and slstm_scan_bwd_incoming, the forward's
-//     local pass and combine at BC: each chunk's incoming (c, n, m);
-//  2. slstm_scan_bwd_local: each chunk's states rerun from its incoming
-//     state into registers, then walked back from a zero carry with dh
-//     (b) and from each unit carry without it (the columns of A): the
-//     chunk maps the carry x at its end to A x + b at its start;
-//  3. slstm_scan_bwd_combine, a thread per (row, unit), serial from the
-//     last chunk: x_{c-1} = A_c x_c + b_c from x = 0, each chunk's x kept;
-//  4. slstm_scan_bwd_apply: each chunk rerun and walked back from its x,
-//     writing the gradients.
-// With one chunk only pass 4 runs. The inputs are read from device memory
-// three times (passes 1, 2 and 4): 13 floats an element in, 4 out.
-// Arithmetic as the forward's (no contraction, no fast math); ties of
-// max(a, i) and of max(n, 1) split the gradient in halves, as
-// jnp.maximum does. The chunks' carries differ from the loop's by
-// rounding, so the gradients are held to the plain version within a
-// tolerance.
+// gradients it carries back, x = (dc, dn, dm). It sends the carry of its
+// new state to that of its incoming state by the matrix
+//   [[fg, 0, 0], [0, fg, 0], [P, Q, sel]],
+//   P = (1 - sel) fg c_{t-1} - sel ig tanh(z),
+//   Q = (1 - sel) fg n_{t-1} - sel ig,
+// plus an offset from dh. Products of such matrices keep the form
+// [[a, 0, 0], [0, a, 0], [p, q, s]], so a span of steps maps the carry at
+// its end to A x + b at its start by 7 numbers (a, p, q, s, b), found in
+// one walk back from a zero carry (a <- fg a, p <- P a + sel p, q <- Q a +
+// sel q, s <- sel s, with the old a) and no division. Time is cut into
+// chunks of L = SUB W steps, each chunk into W spans of SUB steps:
+//  1. slstm_scan_bwd_states, a thread per (row, chunk, unit): the chunk
+//     from the zero state with the forward's step, writing its local
+//     (c, n, m, G) after every SUB steps (z, i, f read once);
+//  2. slstm_scan_bwd_incoming, a thread per (row, unit), serial over the
+//     chunks: the forward's combine, each chunk's incoming (c, n, m);
+//  3. slstm_scan_bwd_chain, a block of W warps per (row, 32 units, chunk),
+//     one lane per unit and one warp per span. A block takes its chunk
+//     from an atomic ticket, the last chunks in time first, so that it
+//     only ever waits on blocks already resident. It copies the chunk's
+//     z, i, f, o and dh into shared memory by cp.async (16-byte copies
+//     where d % 4 == 0 and every pointer is aligned, else 4-byte), each
+//     read from device memory once. Each warp reruns its span from its
+//     incoming state (the chunk's, combined with the local state at the
+//     span's start) keeping c, n, fg, ig, tanh z and sel in registers,
+//     and walks it back once from a zero carry for b and (a, p, q, s),
+//     writing dh's terms and do over the inputs it no longer needs. Warp
+//     0 waits for the next chunk's carry at its start (zero past the
+//     last), applies the W span maps from the last span (each span's end
+//     carry into shared memory), and publishes the chunk's start carry:
+//     the carries stored and fenced before a release of the chunk's flag,
+//     the flag acquired before the carry is read. Then every warp walks
+//     its span back from its end carry, the gradients staged over the
+//     inputs in shared memory and stored coalesced.
+// Each chunk composes only with its direct successor's published carry,
+// so the order of every sum is fixed and two launches agree bit for bit.
+// Three blocks share an SM (80 registers, 51 KB of shared memory each):
+// the chain kernel is held by latency and bytes together, and of the
+// builds tried on an H100 (PERF.md) two blocks an SM, persistent blocks
+// copying the next chunk while walking one, warps copying their own rows
+// and storing from registers, spans of 4 or chunks of 32 steps were all
+// slower.
+// The launch plan (W, copy width, scratch) comes from
+// kernels/slstm_scan/ops.py::slstm_bwd_plan; the states pass zeroes the
+// ticket counter and the flags on the stream every call, so the op's
+// device work is its three kernels. HBM: 12 + 4 bytes an element
+// (states), 36 (chain), the incoming states besides.
+// Arithmetic as the forward's (no contraction, no fast math; the walks'
+// fg, ig, tanh z and sel are the rerun's own values); ties of max(a, i)
+// and of max(n, 1) split the gradient in halves, as jnp.maximum does. The
+// spans' carries differ from the loop's by rounding, so the gradients are
+// held to the plain version within a tolerance.
 
 namespace {
 
-constexpr int BC = 16;                   // steps per backward chunk
+constexpr int SUB = 8;                   // steps a warp walks (a span)
+constexpr int WARPS_MAX = 8;             // spans a chunk, at most
+constexpr int LANES = 32;                // units a block
+// dynamic shared bytes of the largest plan (WARPS_MAX spans)
+constexpr int MAX_SMEM = (5 * SUB + 10) * WARPS_MAX * LANES * 4;
+constexpr int MAX_DEVICES = 64;          // prepare() remembers this many
+// a chain wait this long (about 10 s of the SM clock) is a fault: trap
+// rather than hang
+constexpr long long SPIN_CYCLES = 20000000000LL;
 
 __device__ __forceinline__ float half_at_ties(float x, float y) {
   return x > y ? 1.0f : (x == y ? 0.5f : 0.0f);
 }
 
-// 1. the forward's passes at BC, under the backward's names
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// 1. each chunk from the zero state; its local (c, n, m, G) after every
+// SUB steps into plane group j (state after min((j + 1) SUB, n) steps).
+// It also zeroes the chain's nflags flags and ticket counter, which the
+// chain kernel reads after it on the stream.
 __global__ void __launch_bounds__(THREADS)
 slstm_scan_bwd_states(const float* __restrict__ z,
                       const float* __restrict__ ip,
                       const float* __restrict__ fp, float* __restrict__ sc,
-                      int B, int S, int d, int NC) {
-  local_pass(z, ip, fp, sc, B, S, d, NC, BC);
+                      int* __restrict__ flags, long long nflags, int B,
+                      int S, int d, int NC, int L, int W) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < nflags; e += (long long)gridDim.x * blockDim.x)
+    flags[e] = 0;
+  Place p;
+  if (!place(p, B, S, d, NC, L)) return;
+  const long long plane = (long long)B * NC * d;
+  State st{0.0f, 0.0f, -INFINITY};
+  float G = 0.0f;
+  const int n = p.t1 - p.t0;
+  for (int j = 0; j < W; ++j) {
+    const int t0 = j * SUB;
+    float zv[SUB], iv[SUB], fv[SUB];
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) {
+      if (t0 + u < n) {
+        const long long o = p.base + (long long)(t0 + u) * d;
+        zv[u] = z[o];
+        iv[u] = ip[o];
+        fv[u] = fp[o];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SUB; ++u)
+      if (t0 + u < n) G = __fadd_rn(G, step(st, zv[u], iv[u], fv[u]));
+    float* out = sc + 4LL * j * plane + p.idx;
+    out[0] = st.c;
+    out[plane] = st.n;
+    out[2 * plane] = st.m;
+    out[3 * plane] = G;
+  }
 }
 
+// 2. the forward's combine over the chunks' ends (group W - 1), in place:
+// each chunk's incoming (c, n, m)
 __global__ void __launch_bounds__(THREADS)
 slstm_scan_bwd_incoming(float* __restrict__ sc, int B, int d, int NC) {
   combine_pass(sc, B, d, NC);
 }
 
-// one step's coefficients, from its incoming state p and new state s
-struct Coef {
-  float fg, ig, tz, so, nd, mu, sel, sgf, cp, np, c;
-};
-
-__device__ __forceinline__ Coef coef(const State& p, const State& s, float z,
-                                     float i, float f, float o) {
-  Coef k;
-  const float a = __fadd_rn(log_sigmoid(f), p.m);
-  k.fg = expf(__fsub_rn(a, s.m));
-  k.ig = expf(__fsub_rn(i, s.m));
-  k.tz = tanhf(z);
-  k.so = sigmoid(o);
-  k.nd = s.n != s.n ? s.n : fmaxf(s.n, 1.0f);
-  k.mu = half_at_ties(s.n, 1.0f);
-  k.sel = half_at_ties(a, i);
-  k.sgf = sigmoid(-f);
-  k.cp = p.c;
-  k.np = p.n;
-  k.c = s.c;
-  return k;
+// The incoming state of span w of chunk k: the zero state (k = w = 0),
+// the chunk's incoming state X (w = 0), the local state after w SUB
+// steps (k = 0: the chunk starts from the zero state), or X carried
+// through that local state by the combine's update.
+__device__ __forceinline__ State span_start(const float* sc, long long plane,
+                                            long long idx, int k, int w,
+                                            int W) {
+  const float* x = sc + 4LL * (W - 1) * plane + idx;
+  if (w == 0)
+    return k == 0 ? State{0.0f, 0.0f, -INFINITY}
+                  : State{x[0], x[plane], x[2 * plane]};
+  const float* l = sc + 4LL * (w - 1) * plane + idx;
+  const State loc{l[0], l[plane], l[2 * plane]};
+  if (k == 0) return loc;
+  const float gm = __fadd_rn(l[3 * plane], x[2 * plane]);
+  const float m = tmax(gm, loc.m);
+  const float a = expf(__fsub_rn(gm, m));
+  const float e = expf(__fsub_rn(loc.m, m));
+  return State{__fadd_rn(__fmul_rn(a, x[0]), __fmul_rn(e, loc.c)),
+               __fadd_rn(__fmul_rn(a, x[plane]), __fmul_rn(e, loc.n)), m};
 }
 
-struct Carry {
-  float dc, dn, dm;
-};
-
-// one step back: the carry of the incoming state from the new state's;
-// the gradients (dz, di, df, do) into g
-__device__ __forceinline__ void back(const Coef& k, float dh, Carry& x,
-                                     float (&g)[4]) {
-  const float dhs = __fmul_rn(dh, k.so);
-  g[3] = __fmul_rn(__fmul_rn(__fdiv_rn(__fmul_rn(dh, k.c), k.nd), k.so),
-                   __fsub_rn(1.0f, k.so));
-  const float dc = __fadd_rn(x.dc, __fdiv_rn(dhs, k.nd));
-  const float dn = __fsub_rn(
-      x.dn, __fmul_rn(__fdiv_rn(__fmul_rn(dhs, k.c), __fmul_rn(k.nd, k.nd)),
-                      k.mu));
-  g[0] = __fmul_rn(__fmul_rn(dc, k.ig),
-                   __fsub_rn(1.0f, __fmul_rn(k.tz, k.tz)));
-  const float ga = __fmul_rn(k.fg, __fadd_rn(__fmul_rn(dc, k.cp),
-                                             __fmul_rn(dn, k.np)));
-  const float gi = __fmul_rn(k.ig, __fadd_rn(__fmul_rn(dc, k.tz), dn));
-  const float dmt = __fsub_rn(__fsub_rn(x.dm, ga), gi);
-  const float da = __fadd_rn(ga, __fmul_rn(k.sel, dmt));
-  g[1] = __fadd_rn(gi, __fmul_rn(__fsub_rn(1.0f, k.sel), dmt));
-  g[2] = __fmul_rn(da, k.sgf);
-  x = Carry{__fmul_rn(k.fg, dc), __fmul_rn(k.fg, dn), da};
-}
-
-// a chunk's states into registers: st[u] before step t0 + u
-__device__ __forceinline__ void rerun(const Place& p, const float* sc,
-                                      long long plane, const float* z,
-                                      const float* ip, const float* fp,
-                                      int d, State (&st)[BC + 1],
-                                      float (&zv)[BC], float (&iv)[BC],
-                                      float (&fv)[BC]) {
-  st[0] = State{0.0f, 0.0f, -INFINITY};
-  if (p.t0 > 0)
-    st[0] = State{sc[p.idx], sc[plane + p.idx], sc[2 * plane + p.idx]};
-  const int n = p.t1 - p.t0;
-#pragma unroll
-  for (int u = 0; u < BC; ++u) {
-    st[u + 1] = st[u];
-    if (u < n) {
-      const long long o = p.base + (long long)u * d;
-      zv[u] = z[o];
-      iv[u] = ip[o];
-      fv[u] = fp[o];
-      step(st[u + 1], zv[u], iv[u], fv[u]);
+// Rows [0, n) of a chunk's 32 units of one input into a plane of L x 32
+// floats (row r: step t0 + r), or the same plane back to an output;
+// units past d are not copied. VEC: 16-byte copies, 8 threads a row.
+template <bool VEC>
+__device__ __forceinline__ void stage(float* plane, const float* x,
+                                      long long base, int n, int d, int du) {
+  if (VEC) {
+    for (int e = threadIdx.x; e < n * 8; e += blockDim.x) {
+      const int r = e >> 3, c = (e & 7) * 4;
+      if (c < du) cp16(plane + r * LANES + c, x + base + (long long)r * d + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * LANES; e += blockDim.x) {
+      const int r = e >> 5, c = e & 31;
+      if (c < du) cp4(plane + r * LANES + c, x + base + (long long)r * d + c);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-slstm_scan_bwd_local(const float* __restrict__ z, const float* __restrict__ ip,
-                     const float* __restrict__ fp, const float* __restrict__ op,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ sc, float* __restrict__ mp,
-                     int B, int S, int d, int NC) {
-  Place p;
-  if (!place(p, B, S, d, NC, BC)) return;
-  const long long plane = (long long)B * NC * d;
-  State st[BC + 1];
-  float zv[BC], iv[BC], fv[BC];
-  rerun(p, sc, plane, z, ip, fp, d, st, zv, iv, fv);
-  Carry b{0.0f, 0.0f, 0.0f}, cols[3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f},
-                                       {0.0f, 0.0f, 1.0f}};
-  float g[4];
-  const int n = p.t1 - p.t0;
-#pragma unroll
-  for (int u = BC - 1; u >= 0; --u) {
-    if (u < n) {
-      const long long o = p.base + (long long)u * d;
-      const Coef k = coef(st[u], st[u + 1], zv[u], iv[u], fv[u], op[o]);
-      back(k, dh[o], b, g);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) back(k, 0.0f, cols[j], g);
+template <bool VEC>
+__device__ __forceinline__ void unstage(float* y, const float* plane,
+                                        long long base, int n, int d,
+                                        int du) {
+  if (VEC) {
+    for (int e = threadIdx.x; e < n * 8; e += blockDim.x) {
+      const int r = e >> 3, c = (e & 7) * 4;
+      if (c < du)
+        *reinterpret_cast<float4*>(y + base + (long long)r * d + c) =
+            *reinterpret_cast<const float4*>(plane + r * LANES + c);
     }
-  }
-  const float m[12] = {cols[0].dc, cols[0].dn, cols[0].dm,
-                       cols[1].dc, cols[1].dn, cols[1].dm,
-                       cols[2].dc, cols[2].dn, cols[2].dm, b.dc, b.dn, b.dm};
-#pragma unroll
-  for (int e = 0; e < 12; ++e) mp[e * plane + p.idx] = m[e];
-}
-
-// each chunk's carry at its end into ce (3 planes), from the last chunk
-__global__ void __launch_bounds__(THREADS)
-slstm_scan_bwd_combine(const float* __restrict__ mp, float* __restrict__ ce,
-                       int B, int d, int NC) {
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= (long long)B * d) return;
-  const long long b = idx / d, u = idx % d;
-  const long long plane = (long long)B * NC * d;
-  float x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-  for (int c = NC - 1; c >= 0; --c) {
-    const long long o = (b * NC + c) * d + u;
-    ce[o] = x0;
-    ce[plane + o] = x1;
-    ce[2 * plane + o] = x2;
-    float m[12];
-#pragma unroll
-    for (int e = 0; e < 12; ++e) m[e] = mp[e * plane + o];
-    const float y0 = __fadd_rn(__fadd_rn(__fadd_rn(m[9], __fmul_rn(m[0], x0)),
-                                         __fmul_rn(m[3], x1)),
-                               __fmul_rn(m[6], x2));
-    const float y1 = __fadd_rn(__fadd_rn(__fadd_rn(m[10], __fmul_rn(m[1], x0)),
-                                         __fmul_rn(m[4], x1)),
-                               __fmul_rn(m[7], x2));
-    const float y2 = __fadd_rn(__fadd_rn(__fadd_rn(m[11], __fmul_rn(m[2], x0)),
-                                         __fmul_rn(m[5], x1)),
-                               __fmul_rn(m[8], x2));
-    x0 = y0;
-    x1 = y1;
-    x2 = y2;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-slstm_scan_bwd_apply(const float* __restrict__ z, const float* __restrict__ ip,
-                     const float* __restrict__ fp, const float* __restrict__ op,
-                     const float* __restrict__ dh,
-                     const float* __restrict__ sc, const float* __restrict__ ce,
-                     float* __restrict__ dz, float* __restrict__ di,
-                     float* __restrict__ df, float* __restrict__ dout, int B,
-                     int S, int d, int NC) {
-  Place p;
-  if (!place(p, B, S, d, NC, BC)) return;
-  const long long plane = (long long)B * NC * d;
-  State st[BC + 1];
-  float zv[BC], iv[BC], fv[BC];
-  rerun(p, sc, plane, z, ip, fp, d, st, zv, iv, fv);
-  Carry x{0.0f, 0.0f, 0.0f};
-  if (NC > 1) x = Carry{ce[p.idx], ce[plane + p.idx], ce[2 * plane + p.idx]};
-  float g[4];
-  const int n = p.t1 - p.t0;
-#pragma unroll
-  for (int u = BC - 1; u >= 0; --u) {
-    if (u < n) {
-      const long long o = p.base + (long long)u * d;
-      back(coef(st[u], st[u + 1], zv[u], iv[u], fv[u], op[o]), dh[o], x, g);
-      dz[o] = g[0];
-      di[o] = g[1];
-      df[o] = g[2];
-      dout[o] = g[3];
+  } else {
+    for (int e = threadIdx.x; e < n * LANES; e += blockDim.x) {
+      const int r = e >> 5, c = e & 31;
+      if (c < du) y[base + (long long)r * d + c] = plane[r * LANES + c];
     }
   }
 }
+
+// 3. One block of W warps per ticket; shared: the planes of z, i, f, o
+// and dh (L x 32 each), then the spans' maps (7 x W x 32) and end carries
+// (3 x W x 32). Scratch: sc the states (4 W planes of B NC d), carry the
+// chunks' start carries (3 x 32 per (row, group, chunk)), flags one per
+// (row, group, chunk), ticket the counter.
+template <bool VEC>
+__global__ void __launch_bounds__(LANES * WARPS_MAX, 3)
+slstm_scan_bwd_chain(const float* __restrict__ z,
+                     const float* __restrict__ ip,
+                     const float* __restrict__ fp,
+                     const float* __restrict__ op,
+                     const float* __restrict__ dhp,
+                     const float* __restrict__ sc, float* carry, int* flags,
+                     int* ticket, float* __restrict__ dz,
+                     float* __restrict__ di, float* __restrict__ df,
+                     float* __restrict__ dout, int B, int S, int d, int NC,
+                     int W) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int tk;
+  const int L = W * SUB, lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  // one chunk: no chain, so no ticket (nor a states pass to zero it)
+  if (threadIdx.x == 0) tk = NC > 1 ? atomicAdd(ticket, 1) : (int)blockIdx.x;
+  __syncthreads();
+  const int G = (d + LANES - 1) / LANES;
+  const long long cols = (long long)B * G, col = tk % cols;
+  const int k = NC - 1 - (int)(tk / cols);
+  const int b = (int)(col / G), u0 = (int)(col % G) * LANES;
+  const int t0 = k * L, n = min(L, S - t0), du = d - u0;
+  const long long base = ((long long)b * S + t0) * d + u0;
+  float* const pz = smem;
+  float* const pi = pz + L * LANES;
+  float* const pf = pi + L * LANES;
+  float* const po = pf + L * LANES;
+  float* const pdh = po + L * LANES;
+  float* const maps = pdh + L * LANES;   // field e of span v: e W + v
+  float* const ends = maps + 7 * W * LANES;
+  stage<VEC>(pz, z, base, n, d, du);
+  stage<VEC>(pi, ip, base, n, d, du);
+  stage<VEC>(pf, fp, base, n, d, du);
+  cp_commit();
+  stage<VEC>(po, op, base, n, d, du);
+  stage<VEC>(pdh, dhp, base, n, d, du);
+  cp_commit();
+
+  const int s0 = w * SUB, ns = max(0, min(SUB, n - s0));
+  State st{0.0f, 0.0f, -INFINITY};
+  if (ns > 0 && lane < du)
+    st = span_start(sc, (long long)B * NC * d,
+                    ((long long)b * NC + k) * d + u0 + lane, k, w, W);
+  float c[SUB + 1], nn[SUB + 1], fg[SUB], ig[SUB], tz[SUB], sel[SUB];
+  c[0] = st.c;
+  nn[0] = st.n;
+  cp_wait<1>();                          // z, i, f
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < SUB; ++u) {        // the rerun
+    fg[u] = ig[u] = tz[u] = sel[u] = 0.0f;
+    if (u < ns) {
+      const int r = (s0 + u) * LANES + lane;
+      const float it = pi[r];
+      const float lm = __fadd_rn(log_sigmoid(pf[r]), st.m);
+      const float m_new = tmax(lm, it);
+      fg[u] = expf(__fsub_rn(lm, m_new));
+      ig[u] = expf(__fsub_rn(it, m_new));
+      tz[u] = tanhf(pz[r]);
+      sel[u] = half_at_ties(lm, it);
+      st.c = __fadd_rn(__fmul_rn(fg[u], st.c), __fmul_rn(ig[u], tz[u]));
+      st.n = __fadd_rn(__fmul_rn(fg[u], st.n), ig[u]);
+      st.m = m_new;
+    }
+    c[u + 1] = st.c;
+    nn[u + 1] = st.n;
+  }
+  cp_wait<0>();                          // o, dh
+  __syncthreads();
+  // the span's map from one walk back: (a, p, q, s) and b from a zero
+  // carry; dh's terms over z and i, do over o
+  float a = 1.0f, p = 0.0f, q = 0.0f, s = 1.0f, x0 = 0.0f, x1 = 0.0f,
+        x2 = 0.0f;
+#pragma unroll
+  for (int u = SUB - 1; u >= 0; --u) {
+    if (u < ns) {
+      const int r = (s0 + u) * LANES + lane;
+      const float so = sigmoid(po[r]), dh = pdh[r], ct = c[u + 1],
+                  nt = nn[u + 1];
+      const float nd = nt != nt ? nt : fmaxf(nt, 1.0f);
+      const float dhs = __fmul_rn(dh, so);
+      po[r] = __fmul_rn(__fmul_rn(__fdiv_rn(__fmul_rn(dh, ct), nd), so),
+                        __fsub_rn(1.0f, so));
+      const float e1 = __fdiv_rn(dhs, nd);
+      const float e2 = __fmul_rn(__fdiv_rn(__fmul_rn(dhs, ct),
+                                           __fmul_rn(nd, nd)),
+                                 half_at_ties(nt, 1.0f));
+      pz[r] = e1;
+      pi[r] = e2;
+      const float dc = __fadd_rn(x0, e1), dn = __fsub_rn(x1, e2);
+      const float ga = __fmul_rn(fg[u], __fadd_rn(__fmul_rn(dc, c[u]),
+                                                  __fmul_rn(dn, nn[u])));
+      const float gi = __fmul_rn(ig[u], __fadd_rn(__fmul_rn(dc, tz[u]), dn));
+      const float dmt = __fsub_rn(__fsub_rn(x2, ga), gi);
+      x2 = __fadd_rn(ga, __fmul_rn(sel[u], dmt));
+      x0 = __fmul_rn(fg[u], dc);
+      x1 = __fmul_rn(fg[u], dn);
+      const float fgk = __fmul_rn(__fsub_rn(1.0f, sel[u]), fg[u]);
+      const float sig = __fmul_rn(sel[u], ig[u]);
+      const float P = __fsub_rn(__fmul_rn(fgk, c[u]), __fmul_rn(sig, tz[u]));
+      const float Q = __fsub_rn(__fmul_rn(fgk, nn[u]), sig);
+      p = __fadd_rn(__fmul_rn(P, a), __fmul_rn(sel[u], p));
+      q = __fadd_rn(__fmul_rn(Q, a), __fmul_rn(sel[u], q));
+      s = __fmul_rn(sel[u], s);
+      a = __fmul_rn(fg[u], a);
+    }
+  }
+  {
+    float* m = maps + w * LANES + lane;
+    const int F = W * LANES;
+    m[0] = a;
+    m[F] = p;
+    m[2 * F] = q;
+    m[3 * F] = s;
+    m[4 * F] = x0;
+    m[5 * F] = x1;
+    m[6 * F] = x2;
+  }
+  __syncthreads();
+  if (w == 0) {                          // the chain
+    const long long at = col * NC + k;
+    float y0 = 0.0f, y1 = 0.0f, y2 = 0.0f;
+    if (k + 1 < NC) {
+      const long long t_start = clock64();
+      while (load_acquire(flags + at + 1) == 0)
+        if (clock64() - t_start > SPIN_CYCLES) __trap();
+      const float* cx = carry + (at + 1) * 3 * LANES + lane;
+      y0 = __ldcg(cx);
+      y1 = __ldcg(cx + LANES);
+      y2 = __ldcg(cx + 2 * LANES);
+    }
+    const int F = W * LANES;
+    for (int v = W - 1; v >= 0; --v) {
+      float* e = ends + v * LANES + lane;
+      e[0] = y0;
+      e[F] = y1;
+      e[2 * F] = y2;
+      const float* m = maps + v * LANES + lane;
+      const float z2 = __fadd_rn(
+          __fadd_rn(__fadd_rn(__fmul_rn(m[F], y0), __fmul_rn(m[2 * F], y1)),
+                    __fmul_rn(m[3 * F], y2)),
+          m[6 * F]);
+      y0 = __fadd_rn(__fmul_rn(m[0], y0), m[4 * F]);
+      y1 = __fadd_rn(__fmul_rn(m[0], y1), m[5 * F]);
+      y2 = z2;
+    }
+    if (k > 0) {                         // publish the chunk's start carry
+      float* cx = carry + at * 3 * LANES + lane;
+      __stcg(cx, y0);
+      __stcg(cx + LANES, y1);
+      __stcg(cx + 2 * LANES, y2);
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) store_release(flags + at, 1);
+    }
+  }
+  __syncthreads();
+  {                                      // the walk from the span's end
+    const float* e = ends + w * LANES + lane;
+    x0 = e[0];
+    x1 = e[W * LANES];
+    x2 = e[2 * W * LANES];
+  }
+#pragma unroll
+  for (int u = SUB - 1; u >= 0; --u) {
+    if (u < ns) {
+      const int r = (s0 + u) * LANES + lane;
+      const float dc = __fadd_rn(x0, pz[r]), dn = __fsub_rn(x1, pi[r]);
+      pz[r] = __fmul_rn(__fmul_rn(dc, ig[u]),
+                        __fsub_rn(1.0f, __fmul_rn(tz[u], tz[u])));
+      const float ga = __fmul_rn(fg[u], __fadd_rn(__fmul_rn(dc, c[u]),
+                                                  __fmul_rn(dn, nn[u])));
+      const float gi = __fmul_rn(ig[u], __fadd_rn(__fmul_rn(dc, tz[u]), dn));
+      const float dmt = __fsub_rn(__fsub_rn(x2, ga), gi);
+      const float da = __fadd_rn(ga, __fmul_rn(sel[u], dmt));
+      pi[r] = __fadd_rn(gi, __fmul_rn(__fsub_rn(1.0f, sel[u]), dmt));
+      pf[r] = __fmul_rn(da, sigmoid(-pf[r]));
+      x0 = __fmul_rn(fg[u], dc);
+      x1 = __fmul_rn(fg[u], dn);
+      x2 = da;
+    }
+  }
+  __syncthreads();
+  unstage<VEC>(dz, pz, base, n, d, du);
+  unstage<VEC>(di, pi, base, n, d, du);
+  unstage<VEC>(df, pf, base, n, d, du);
+  unstage<VEC>(dout, po, base, n, d, du);
+}
+
+// The largest plan's dynamic shared memory (above the default 48 KB),
+// set once a device for each instance of the chain kernel (`done`, one
+// flag a device, is its own).
+template <typename K>
+cudaError_t prepare(K kernel, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (err == cudaSuccess && dev < MAX_DEVICES)
+    done[dev].store(true, std::memory_order_release);
+  return err;
+}
+
+std::atomic<bool> chain_vec_done[MAX_DEVICES], chain_done[MAX_DEVICES];
 
 }  // namespace
 
-// scratch: 19 B NC d floats, NC = ceil(S / 16): the forward's 4 planes,
-// the chunks' maps (12) and carries (3); unused when NC = 1.
+// The plan of kernels/slstm_scan/ops.py::slstm_bwd_plan: warps spans a
+// chunk, 1 <= warps <= WARPS_MAX, so chunks of SUB x warps steps and (5
+// chunk + 10 warps) x 32 floats of dynamic shared memory; vec only where
+// d % 4 == 0 and every pointer is 16-byte aligned. Anything else is
+// refused. Scratch, in floats: the states (4 warps B NC d), the chunks'
+// start carries (96 B G NC, G = ceil(d / 32)), then B G NC + 1 ints: the
+// flags and the ticket counter, zeroed by the states pass every call
+// (with one chunk the chain reads neither).
 extern "C" int slstm_scan_bwd_launch(const void* z, const void* i,
                                      const void* f, const void* o,
                                      const void* dh, void* dz, void* di,
                                      void* df, void* dout, void* scratch,
-                                     int B, int S, int d, void* stream) {
+                                     int B, int S, int d, int warps, int vec,
+                                     void* stream) {
   if (B == 0 || S == 0 || d == 0) return (int)cudaSuccess;
-  const int NC = (S + BC - 1) / BC;
+  if (warps < 1 || warps > WARPS_MAX) return (int)cudaErrorInvalidValue;
+  const int W = warps, L = SUB * W, NC = (S + L - 1) / L;
+  const int smem = (5 * L + 10 * W) * LANES * 4;
+  const int G = (d + LANES - 1) / LANES;
+  const long long tickets = (long long)B * G * NC;
+  if (tickets > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const void* ptrs[9] = {z, i, f, o, dh, dz, di, df, dout};
+  if (vec) {
+    if (d % 4 != 0) return (int)cudaErrorInvalidValue;
+    for (const void* p : ptrs)
+      if ((uintptr_t)p % 16 != 0) return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   const float *zp = (const float*)z, *ip = (const float*)i,
               *fp = (const float*)f, *opp = (const float*)o,
               *dhp = (const float*)dh;
   const long long plane = (long long)B * NC * d;
   float* sc = (float*)scratch;
-  float *mp = sc + 4 * plane, *ce = mp + 12 * plane;
-  const int blocks = (int)((plane + THREADS - 1) / THREADS);
-  cudaError_t err;
-  if (NC > 1) {
-    slstm_scan_bwd_states<<<blocks, THREADS, 0, s>>>(zp, ip, fp, sc, B, S,
-                                                     d, NC);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    const int cb = (int)(((long long)B * d + THREADS - 1) / THREADS);
-    slstm_scan_bwd_incoming<<<cb, THREADS, 0, s>>>(sc, B, d, NC);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    slstm_scan_bwd_local<<<blocks, THREADS, 0, s>>>(zp, ip, fp, opp, dhp, sc,
-                                                    mp, B, S, d, NC);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    slstm_scan_bwd_combine<<<cb, THREADS, 0, s>>>(mp, ce, B, d, NC);
+  float* carry = sc + 4LL * W * plane;
+  int* flags = (int*)(carry + 3LL * LANES * tickets);
+  cudaError_t err = cudaSuccess;
+  if (S > SUB) {                         // else span 0 alone, from zero
+    const int blocks = (int)((plane + THREADS - 1) / THREADS);
+    slstm_scan_bwd_states<<<blocks, THREADS, 0, s>>>(
+        zp, ip, fp, sc, flags, tickets + 1, B, S, d, NC, L, W);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  slstm_scan_bwd_apply<<<blocks, THREADS, 0, s>>>(
-      zp, ip, fp, opp, dhp, sc, ce, (float*)dz, (float*)di, (float*)df,
-      (float*)dout, B, S, d, NC);
+  if (NC > 1) {
+    const int cb = (int)(((long long)B * d + THREADS - 1) / THREADS);
+    slstm_scan_bwd_incoming<<<cb, THREADS, 0, s>>>(
+        sc + 4LL * (W - 1) * plane, B, d, NC);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (vec) {
+    if ((err = prepare(slstm_scan_bwd_chain<true>, chain_vec_done)) !=
+        cudaSuccess)
+      return (int)err;
+    slstm_scan_bwd_chain<true><<<(unsigned)tickets, LANES * W, smem, s>>>(
+        zp, ip, fp, opp, dhp, sc, carry, flags, flags + tickets, (float*)dz,
+        (float*)di, (float*)df, (float*)dout, B, S, d, NC, W);
+  } else {
+    if ((err = prepare(slstm_scan_bwd_chain<false>, chain_done)) !=
+        cudaSuccess)
+      return (int)err;
+    slstm_scan_bwd_chain<false><<<(unsigned)tickets, LANES * W, smem, s>>>(
+        zp, ip, fp, opp, dhp, sc, carry, flags, flags + tickets, (float*)dz,
+        (float*)di, (float*)df, (float*)dout, B, S, d, NC, W);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,12 +11,15 @@ local pass per chunk, a serial combine over the chunks, a rerun of each
 chunk from its incoming state); :mod:`.chunked` models it in PyTorch
 for the CPU tests.
 
-:func:`slstm_scan_bwd` wraps the backward kernels of the same file (the
-same chunked scan run backwards in time, in chunks of ``BWD_CHUNK``
-steps: the forward's local pass and combine for the chunks' incoming
-states, a local pass giving each chunk's affine map of the carried
-gradients, a serial combine over the chunks from the last, a rerun
-writing the gradients); its launch count is ``slstm_scan_bwd.launches``.
+:func:`slstm_scan_bwd` wraps the backward kernels of the same file:
+a states pass and the forward's combine give the incoming state of
+each chunk of ``BWD_CHUNK`` steps, then one kernel walks the chunks
+backwards in time, a block per (row, 32 units, chunk) taken by ticket
+from the end of time, each warp a span of ``BWD_SPAN`` steps whose map
+of the carried gradients it finds in one walk (7 numbers), the chunks
+chained through their published carries. :func:`slstm_bwd_plan` gives
+its launch plan, checked on the CPU. Its launch count is
+``slstm_scan_bwd.launches``.
 
 Each is a ``torch.library`` custom op (``repro_torch::slstm_scan``,
 ``repro_torch::slstm_scan_bwd``) with a fake (meta) version, a DTensor
@@ -29,7 +32,7 @@ backward op is the forward's autograd, on the saved inputs.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch.distributed.tensor import Replicate, Shard
@@ -41,10 +44,14 @@ from repro_torch.kernels.slstm_scan.ref import (slstm_scan_bwd_ref,
                                                 slstm_scan_ref)
 
 CHUNK = 64                               # steps per chunk of the kernel
-BWD_CHUNK = 16                           # steps per chunk of the backward
+BWD_SPAN = 8                             # steps a warp of the backward walks
+BWD_WARPS = 8                            # spans (warps) a backward chunk
+BWD_CHUNK = BWD_SPAN * BWD_WARPS         # steps per chunk of the backward
+BWD_UNITS = 32                           # units a block, one a lane
+GRID_X_MAX = 2 ** 31 - 1
 
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(op: str, *ts: torch.Tensor) -> None:
@@ -63,12 +70,56 @@ def _check(op: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{op} takes contiguous operands")
 
 
+class SlstmBwdPlan(NamedTuple):
+    """Launch plan of one ``slstm_scan_bwd`` call. Time is cut into
+    ``chunks`` chunks of ``chunk`` = ``BWD_SPAN`` x ``warps`` steps, and
+    the chain kernel's grid into ``tickets`` = B x ``groups`` x ``chunks``
+    blocks of ``warps`` warps: the block that takes ticket t from the
+    counter walks chunk ``chunks - 1 - t // (B groups)`` of row ``(t %
+    (B groups)) // groups``, units ``[32 g, 32 g + 32)``, ``g = t %
+    groups``, its warp w steps ``[w BWD_SPAN, (w + 1) BWD_SPAN)``.
+    ``smem``: the dynamic shared bytes (``(5 chunk + 10 warps) x 32``
+    floats: z, i, f, o and dh staged, the spans' maps and end carries);
+    ``vec`` 16-byte copies, else 4-byte; ``scratch`` the floats of the
+    scratch tensor (the states pass's 4 ``warps`` planes of B ``chunks``
+    d, 96 floats of carry and one flag a ticket, the ticket counter). The
+    kernel takes ``warps`` and ``vec`` and derives the rest as here."""
+    chunk: int
+    warps: int
+    groups: int
+    chunks: int
+    tickets: int
+    smem: int
+    vec: bool
+    scratch: int
+
+
+def slstm_bwd_plan(B: int, S: int, d: int,
+                   aligned: bool = True) -> SlstmBwdPlan:
+    """The plan of a (B, S, d) ``slstm_scan_bwd``; ``aligned`` when every
+    operand's pointer is 16-byte aligned. A chunk no longer than S
+    rounded up to a whole span. Raises on what the kernels cannot
+    hold."""
+    if min(B, S, d) < 1:
+        raise ValueError(f"slstm_bwd_plan takes B, S, d >= 1, got "
+                         f"{(B, S, d)}")
+    warps = min(BWD_WARPS, -(-S // BWD_SPAN))
+    chunk = BWD_SPAN * warps
+    groups, chunks = -(-d // BWD_UNITS), -(-S // chunk)
+    tickets = B * groups * chunks
+    if tickets > GRID_X_MAX:
+        raise ValueError(f"slstm_scan_bwd: {tickets} blocks exceed CUDA's "
+                         f"grid limit of {GRID_X_MAX}")
+    smem = (5 * chunk + 10 * warps) * BWD_UNITS * 4
+    scratch = 4 * warps * B * chunks * d + 3 * BWD_UNITS * tickets \
+        + tickets + 1
+    return SlstmBwdPlan(chunk, warps, groups, chunks, tickets, smem,
+                        d % 4 == 0 and aligned, scratch)
+
+
 def bwd_scratch_floats(B: int, S: int, d: int) -> int:
-    """Floats of the backward's scratch: 19 planes of B x chunks x d (the
-    forward's incoming states and chunk sums, the chunks' maps and their
-    end carries); none for one chunk."""
-    chunks = -(-S // BWD_CHUNK)
-    return 19 * B * chunks * d if chunks > 1 else 0
+    """Floats of the backward's scratch (``slstm_bwd_plan``'s)."""
+    return slstm_bwd_plan(B, S, d).scratch
 
 
 @torch.library.custom_op("repro_torch::slstm_scan", mutates_args=())
@@ -112,13 +163,18 @@ def _slstm_scan_bwd(z: torch.Tensor, i: torch.Tensor, f: torch.Tensor,
         raise ValueError(f"slstm_scan_bwd runs on cuda or cpu, not "
                          f"{z.device}")
     grads = tuple(torch.empty_like(z) for _ in range(4))
+    if not z.numel():
+        return grads
     B, S, d = z.shape
-    scratch = torch.empty(bwd_scratch_floats(B, S, d), dtype=torch.float32,
+    ts = (z, i, f, o, dh) + grads
+    plan = slstm_bwd_plan(B, S, d,
+                          aligned=all(t.data_ptr() % 16 == 0 for t in ts))
+    scratch = torch.empty(plan.scratch, dtype=torch.float32,
                           device=z.device)
     fn = build.entry("slstm_scan", "slstm_scan_bwd_launch", _BWD_ARGS)
     with torch.cuda.device(z.device):
-        status = fn(*(t.data_ptr() for t in (z, i, f, o, dh) + grads),
-                    scratch.data_ptr(), B, S, d,
+        status = fn(*(t.data_ptr() for t in ts), scratch.data_ptr(), B, S,
+                    d, plan.warps, int(plan.vec),
                     torch.cuda.current_stream(z.device).cuda_stream)
     build.check(status, "slstm_scan_bwd")
     slstm_scan_bwd.launches += 1

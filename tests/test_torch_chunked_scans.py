@@ -34,9 +34,11 @@ from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
     mlstm_scan_bwd_exact, mlstm_scan_bwd_ref, mlstm_scan_exact,
     mlstm_scan_ref, mlstm_step)
 from repro_torch.kernels.slstm_scan.chunked import (  # noqa: E402
-    slstm_chunked, slstm_chunked_bwd)
+    slstm_chunked, slstm_chunked_bwd, span_map)
+from repro_torch.kernels.slstm_scan.ops import (  # noqa: E402
+    BWD_CHUNK as SLSTM_BWD_CHUNK, BWD_SPAN as SLSTM_BWD_SPAN)
 from repro_torch.kernels.slstm_scan.ref import (  # noqa: E402
-    slstm_scan_bwd_ref, slstm_scan_ref)
+    slstm_bwd_step, slstm_scan_bwd_ref, slstm_scan_ref, slstm_step)
 
 CHUNKS = [16, 32, 64]
 LENGTHS = ["1", "L-1", "L", "L+1", "200", "1024"]
@@ -194,7 +196,7 @@ def test_slstm_chunked_matches_the_loop(chunk, kind):
 # which holds the kernels on the card): the chunkwise products, the
 # gates' reverse sums and the chunked carries run in another order
 BWD_RTOL = 2e-5
-BWD_CHUNKS = {"mlstm": 32, "slstm": 16}           # the kernels' chunks
+BWD_CHUNKS = {"mlstm": 32, "slstm": SLSTM_BWD_CHUNK}   # the kernels' chunks
 BWD_LENGTHS = ["1", "L-1", "L+1", "200"]
 FORGET_BIASES = [3.0, 6.0, 10.0]
 
@@ -291,5 +293,82 @@ def test_slstm_chunked_bwd_matches_the_plain_backward(bias, kind):
     rng = np.random.default_rng(int(bias) * 1000 + S + 1)
     z, i, f, o, dh = (_rand(rng, 2, S, 24) for _ in range(5))
     f = f + bias
-    _grads_close(slstm_chunked_bwd(z, i, f, o, dh, BWD_CHUNKS["slstm"]),
+    _grads_close(slstm_chunked_bwd(z, i, f, o, dh, BWD_CHUNKS["slstm"],
+                                   SLSTM_BWD_SPAN),
                  slstm_scan_bwd_ref(z, i, f, o, dh))
+
+
+@pytest.mark.parametrize("d", [1, 24, 33])
+@pytest.mark.parametrize("kind", LENGTHS[:5] + ["1000"])
+@pytest.mark.parametrize("bias", FORGET_BIASES)
+def test_slstm_chunked_bwd_at_chunk_and_span_edges(bias, kind, d):
+    """The kernel's chunks and spans (``ops.BWD_CHUNK``, ``BWD_SPAN``)
+    against the plain backward at S shorter than a span, around a chunk,
+    not a multiple of one and long; d of one unit, a multiple of 4 and
+    neither of 4 nor of 32."""
+    L = BWD_CHUNKS["slstm"]
+    S = 1000 if kind == "1000" else _length(kind, L)
+    rng = np.random.default_rng(int(bias) * 7919 + S * 31 + d)
+    z, i, f, o, dh = (_rand(rng, 2, S, d) for _ in range(5))
+    f = f + bias
+    _grads_close(slstm_chunked_bwd(z, i, f, o, dh, L, SLSTM_BWD_SPAN),
+                 slstm_scan_bwd_ref(z, i, f, o, dh))
+
+
+def _slstm_states(xs, ties=()):
+    """The loop's states (c, n, m) before each step and after the last,
+    in float64; at the steps ``ties`` the input gate is set to
+    logsigmoid(f) + m_{t-1}, so that max(a, i) ties there."""
+    B, S, d = xs[0].shape
+    carry = (xs[0].new_zeros((B, d)), xs[0].new_zeros((B, d)),
+             torch.full((B, d), -torch.inf, dtype=xs[0].dtype))
+    states = [carry]
+    for t in range(S):
+        if t in ties:
+            xs[1][:, t] = torch.nn.functional.logsigmoid(xs[2][:, t]) \
+                + carry[2]
+        carry, _ = slstm_step(carry, tuple(x[:, t] for x in xs))
+        states.append(carry)
+    return states
+
+
+@pytest.mark.parametrize("S,ties", [(1, ()), (8, ()), (16, ()),
+                                    (8, (1, 4, 5)), (16, (2, 3, 9, 15))])
+@pytest.mark.parametrize("bias", [3.0, 10.0])
+def test_slstm_span_map_equals_the_dense_map(S, ties, bias):
+    """A span's map in its structured form (a, p, q, s and b, one walk)
+    equals the dense 3 x 3 map of three unit-column walks of
+    ``ref.slstm_bwd_step`` and its zero-carry walk, in float64: the
+    zeros and a and s exactly, p, q and b within 1e-12; also where
+    max(a, i) ties (sel = 1/2)."""
+    rng = np.random.default_rng(S * 13 + len(ties) + int(bias))
+    xs = [torch.from_numpy(rng.standard_normal((2, S, 5))) for _ in range(4)]
+    xs[2] = xs[2] + bias
+    dh = torch.from_numpy(rng.standard_normal((2, S, 5)))
+    states = _slstm_states(xs, ties)
+    for t in ties:                            # the ties hold in the rerun
+        a = torch.nn.functional.logsigmoid(xs[2][:, t]) + states[t][2]
+        assert torch.equal(a, xs[1][:, t])
+        assert torch.equal(states[t + 1][2], a)
+    (a, p, q, s), b = span_map(xs, dh, 0, S, states)
+
+    def walk(carry, grad):
+        for t in range(S - 1, -1, -1):
+            carry, _ = slstm_bwd_step(states[t], states[t + 1],
+                                      tuple(x[:, t] for x in xs),
+                                      grad[:, t], carry)
+        return carry
+    zero = torch.zeros_like(dh[:, 0])
+    cols = [walk(tuple(torch.ones_like(zero) if e == j else zero
+                       for e in range(3)), torch.zeros_like(dh))
+            for j in range(3)]
+    dense = torch.stack([torch.stack(col) for col in cols], dim=1)
+    assert torch.equal(dense[0, 0], a) and torch.equal(dense[1, 1], a)
+    assert torch.equal(dense[2, 2], s)
+    for r, c in [(0, 1), (0, 2), (1, 0), (1, 2)]:
+        assert torch.equal(dense[r, c], zero)
+    assert float((dense[2, 0] - p).abs().max()) <= 1e-12
+    assert float((dense[2, 1] - q).abs().max()) <= 1e-12
+    b_dense = walk((zero, zero, zero), dh)
+    for x, y in zip(b, b_dense):
+        assert float((x - y).abs().max()) <= 1e-12

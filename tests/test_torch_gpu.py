@@ -516,10 +516,15 @@ RGLRU_SHAPES = ELEMENTWISE_SCAN_SHAPES + [
     (2, 64, 64), (2, 65, 64), (1, 65, 33), (2, 1000, 100), (2, 4096, 2560),
     (2, 112, 64), (1, 113, 33), (2, 128, 64), (1, 129, 100),
     (70000, 3, 32)]
-# the sLSTM's chunked scan (64-step chunks) besides: one chunk exactly,
-# one step past it, S not a multiple of it, many chunks at full width
-SLSTM_SHAPES = ELEMENTWISE_SCAN_SHAPES + [(2, 64, 64), (1, 65, 100),
-                                          (2, 1000, 33), (2, 4096, 2048)]
+# the sLSTM's chunked scans (64-step chunks forward and backward, 8-step
+# spans backward) besides: one step short of a chunk, one chunk exactly,
+# one step past it, S not a multiple of it, d not a multiple of 32 or of
+# 4 (4-byte copies), many chunks at full width, and one row of 4096
+# steps (the longest chain beside the fewest blocks)
+SLSTM_SHAPES = ELEMENTWISE_SCAN_SHAPES + [(2, 63, 64), (2, 64, 64),
+                                          (2, 65, 33), (1, 65, 100),
+                                          (2, 1000, 33), (2, 4096, 2048),
+                                          (1, 4096, 100)]
 # (B, S, H, hd): the smoke head, ragged heads, xlstm_1_3b's full head;
 # against the mLSTM's 32-step chunks: S < 32, S = 32, S not a multiple
 # of 32; hd of 16, 48 and 512, hd not a multiple of 4 or 8
@@ -832,6 +837,21 @@ def test_cuda_slstm_scan_bwd_matches_plain_version(B, S, d):
     torch.cuda.synchronize()
     assert sops.slstm_scan_bwd.launches == n0 + 1
     _grads_close(got, slstm_scan_bwd_ref(z, i, f, o, dh))
+
+
+@pytest.mark.gpu
+def test_cuda_slstm_scan_bwd_is_deterministic():
+    """Each chunk composes only with its successor's published carry, so
+    two launches on the same full-width inputs agree bit for bit."""
+    _, _, sops = _scan_ops()
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(24)
+    z, i, f, o, dh = (torch.randn((2, 4096, 2048), generator=g, device=dev)
+                      for _ in range(5))
+    first = sops.slstm_scan_bwd(z, i, f + 3.0, o, dh)
+    second = sops.slstm_scan_bwd(z, i, f + 3.0, o, dh)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -36,6 +36,7 @@ from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_bwd_ref, rglru_scan_ref)
+from repro_torch.kernels.slstm_scan import ops as sops  # noqa: E402
 
 # M, K, N: decode shapes, the library-call shape, prefill, the ragged
 # shapes of the card tests, and K around the 64-row step
@@ -629,3 +630,108 @@ def test_rglru_tile_schedule_equals_the_plain_loops_bitwise(S, d):
         assert (past == 0).all()              # nothing past d is copied
         outs = 2 if backward else 1           # every output once, within d
         assert (written[:, :d] == outs).all() and (written[:, d:] == 0).all()
+
+
+# -- the sLSTM backward: a block of warps per (row, 32 units, chunk) ------
+
+SLSTM_BWD_SHAPES = [(2, 4096, 2048), (1, 4096, 100), (2, 1, 64), (2, 7, 33),
+                    (2, 63, 64), (2, 64, 64), (2, 65, 33), (3, 200, 1),
+                    (1, 1000, 24)]
+
+
+def _slstm_bwd_blocks(B, S, d, p):
+    """Each ticket's (chunk, row, group), as the chain kernel reads it."""
+    cols = B * p.groups
+    for t in range(p.tickets):
+        col = t % cols
+        yield t, p.chunks - 1 - t // cols, col // p.groups, col % p.groups
+
+
+@pytest.mark.parametrize("B,S,d", SLSTM_BWD_SHAPES)
+def test_slstm_bwd_plan_covers_every_row_step_and_unit_once(B, S, d):
+    p = sops.slstm_bwd_plan(B, S, d)
+    assert p.chunk == sops.BWD_SPAN * p.warps
+    assert p.groups == math.ceil(d / 32) and p.chunks == math.ceil(S / p.chunk)
+    cover = np.zeros((B, S, p.groups * 32), dtype=int)
+    ticket_of = {}
+    for t, k, b, g in _slstm_bwd_blocks(B, S, d, p):
+        ticket_of[b, g, k] = t
+        for w in range(p.warps):             # warp w: its span of steps
+            t0 = k * p.chunk + w * sops.BWD_SPAN
+            cover[b, t0:min(t0 + sops.BWD_SPAN, S),
+                  g * 32:(g + 1) * 32] += 1
+    # lanes past d copy and write nothing
+    assert (cover[:, :, :d] == 1).all() and p.groups * 32 - d < 32
+    # every chunk waits only on its successor, which took an earlier
+    # ticket: a block never waits on one that is not yet resident
+    for (b, g, k), t in ticket_of.items():
+        if k + 1 < p.chunks:
+            assert ticket_of[b, g, k + 1] < t
+    assert sorted(ticket_of.values()) == list(range(p.tickets))
+
+
+@pytest.mark.parametrize("B,S,d,resident", [(2, 1000, 100, 1),
+                                            (2, 1000, 100, 3),
+                                            (1, 4096, 64, 2),
+                                            (3, 200, 33, 5), (2, 65, 64, 7)])
+def test_slstm_bwd_blocks_never_wait_forever(B, S, d, resident):
+    """A block takes its ticket when the card starts it, and a chunk
+    waits for its successor's carry: whichever resident blocks the card
+    runs first, some block can always go on, however few fit."""
+    p = sops.slstm_bwd_plan(B, S, d)
+    cols = B * p.groups
+    rng = np.random.default_rng(B * S + d + resident)
+    counter, done, running = 0, set(), []
+    while len(done) < p.tickets:
+        while len(running) < resident and counter < p.tickets:
+            running.append(counter)          # a block starts, takes one
+            counter += 1
+        ready = [t for t in running
+                 if t // cols == 0 or t - cols in done]
+        assert ready, "every resident block waits: the chain is stuck"
+        t = ready[rng.integers(len(ready))]
+        done.add(t)
+        running.remove(t)
+    assert done == set(range(p.tickets))
+
+
+def test_slstm_bwd_plan_fills_the_card_and_fits_shared_memory():
+    p = sops.slstm_bwd_plan(2, 4096, 2048)
+    # xlstm_1_3b's sLSTM at B = 2, S = 4096: 64-step chunks of 8 spans
+    assert (p.chunk, sops.BWD_SPAN, p.warps) == (64, 8, 8) == (
+        sops.BWD_CHUNK, sops.BWD_SPAN, sops.BWD_WARPS)
+    assert p.tickets == 2 * 64 * 64 >= 4 * 132
+    # z, i, f, o and dh staged, the spans' maps (7) and end carries (3)
+    assert p.smem == (5 * 64 + 10 * 8) * 32 * 4 == 51200 > 48 * 1024
+    # three blocks an SM (the kernel's launch bounds) beside the reserve
+    assert p.smem <= BLOCK_SMEM and 3 * (p.smem + BLOCK_RESERVED) <= SM_SMEM
+    assert p.vec
+    # the states (4 planes a span), 96 carry floats and a flag a ticket,
+    # the ticket counter
+    assert p.scratch == (4 * 8 * 2 * 64 * 2048 + 96 * p.tickets
+                         + p.tickets + 1)
+    assert sops.bwd_scratch_floats(2, 4096, 2048) == p.scratch
+
+
+@pytest.mark.parametrize("S", [1, 7, 8, 9, 63, 64, 65, 4096])
+def test_slstm_bwd_plan_fits_the_chunk_to_short_sequences(S):
+    p = sops.slstm_bwd_plan(2, S, 64)
+    assert p.warps == min(sops.BWD_WARPS, math.ceil(S / sops.BWD_SPAN))
+    assert p.smem == (5 * p.chunk + 10 * p.warps) * 32 * 4
+    assert p.chunk >= S or p.chunk == sops.BWD_CHUNK
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 33, 63, 64, 100, 2048])
+def test_slstm_bwd_plan_copies_16_bytes_only_where_they_are_aligned(d):
+    assert sops.slstm_bwd_plan(2, 100, d).vec == (d % 4 == 0)
+    assert not sops.slstm_bwd_plan(2, 100, d, aligned=False).vec
+
+
+def test_slstm_bwd_plan_rejects_what_the_kernels_cannot_hold():
+    for shape in [(2, 0, 64), (0, 10, 64), (2, 10, 0)]:
+        with pytest.raises(ValueError, match="B, S, d >= 1"):
+            sops.slstm_bwd_plan(*shape)
+    # one block a ticket on grid.x: at most 2^31 - 1 of them
+    assert sops.slstm_bwd_plan(2 ** 20, 64, 2047 * 32).tickets < 2 ** 31
+    with pytest.raises(ValueError, match="grid limit"):
+        sops.slstm_bwd_plan(2 ** 20, 128, 2048 * 32)
