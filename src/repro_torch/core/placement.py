@@ -835,10 +835,11 @@ def build_lut_grid(ems: Sequence[EnergyModel], *, t_slice_ns: float,
 
     luts: List[Optional[PlacementLUT]] = [None] * len(preps)
     for (T, Kg_g, _, _), idxs in groups.items():
-        # three spans split one group's build: the device pass, the
-        # stage-table copy to the host the backtrace walks, and the host
-        # finalize (with tracing on, the device pass is synchronized
-        # inside its own span so the copy span holds only the copy)
+        # three spans split one group's build: the host enqueueing the
+        # device pass, the stage-table copy to the host the backtrace
+        # walks (which also waits for the pass; a profile puts the
+        # pass's device time down to the first span, where it was
+        # launched), and the host finalize
         with obs.span("placement.lut_grid.kernel", "placement",
                       n_variants=len(idxs), device=dev.type):
             stages, min_e, splits = lut_build(
@@ -846,8 +847,6 @@ def build_lut_grid(ems: Sequence[EnergyModel], *, t_slice_ns: float,
                 np.stack([preps[i][3].e_items for i in idxs]),
                 T, Kg_g, np.stack([preps[i][3].rows for i in idxs]),
                 device=dev)
-            if obs.enabled() and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
         with obs.span("placement.lut_grid.d2h", "placement",
                       bytes=stages.numel() * stages.element_size()):
             stages, min_e, splits = map(_host, (stages, min_e, splits))

@@ -180,14 +180,10 @@ def knapsack_dp(t_items: Sequence[int], e_items: Sequence[float],
                      device=dev).view(1, 1, n)
     e = torch.tensor(list(e_items), dtype=torch.float32,
                      device=dev).view(1, 1, n)
-    _obs = obs.enabled()
-    _t0 = obs.now_ns() if _obs else 0
     stages, _ = dp_stages(t, e, T, K)
-    if _obs:
+    if obs.enabled():
         # dispatch accounting keyed by the device that ran, so a trace
         # shows whether the kernel or the plain version ran
         obs.counter("kernels.knapsack_dp.dispatch", backend=dev.type)
-        obs.observe("kernels.knapsack_dp.us",
-                    (obs.now_ns() - _t0) / 1e3, backend=dev.type)
     stages = stages[0, 0]
     return stages if return_stages else stages[-1]

@@ -164,15 +164,11 @@ def lut_build(t_items, e_items, T: int, K: int, rows, *,
     r = torch.as_tensor(rows, dtype=torch.int32, device=dev)
     if r.ndim == 1:
         r = r.unsqueeze(0).expand(t.shape[0], -1)
-    _obs = obs.enabled()
-    _t0 = obs.now_ns() if _obs else 0
     stages, gathered = dp_stages(t.contiguous(), e.contiguous(), T, K,
                                  r.contiguous())
     min_e, splits = minplus_combine(gathered)
-    if _obs:
+    if obs.enabled():
         # dispatch accounting keyed by the device that ran, so a trace
         # shows whether the kernels or the plain versions ran
         obs.counter("kernels.lut_pipeline.dispatch", backend=dev.type)
-        obs.observe("kernels.lut_pipeline.us",
-                    (obs.now_ns() - _t0) / 1e3, backend=dev.type)
     return stages, min_e, splits

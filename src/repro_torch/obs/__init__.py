@@ -31,6 +31,11 @@ Enable with :func:`enable` (optionally attaching a
 :class:`~repro_torch.obs.flight.FlightRecorder`), read back through
 ``repro_torch.api.obs()``, export with :func:`export`. The state is
 process-global on purpose: one fleet run = one timeline.
+
+Spans share a timeline with ``torch.profiler``'s host and device events
+through a clock anchor (:func:`clock_anchor`, taken by :func:`enable`
+and again on request; exported under ``otherData``): convert a span's
+``ts`` with :func:`to_unix_ns`.
 """
 from __future__ import annotations
 
@@ -42,13 +47,13 @@ from repro_torch.obs.metrics import (TIME_US_BUCKETS,  # noqa: F401
                                WAIT_SLICE_BUCKETS, Histogram,
                                MetricsRegistry)
 from repro_torch.obs.trace import (NULL_SPAN, NullSpan, Span,  # noqa: F401
-                             Tracer, now_ns, summarize_events)
+                             Tracer, now_ns, summarize_events, to_unix_ns)
 
 __all__ = [
     "enabled", "enable", "disable", "reset",
     "tracer", "metrics", "flight_recorder", "set_flight_recorder",
     "span", "instant", "complete", "counter", "gauge", "observe",
-    "export", "now_ns", "summarize_events",
+    "export", "now_ns", "summarize_events", "clock_anchor", "to_unix_ns",
     "Tracer", "MetricsRegistry", "FlightRecorder", "Histogram",
     "NULL_SPAN",
 ]
@@ -66,12 +71,20 @@ def enabled() -> bool:
 
 
 def enable(*, flight_recorder: Optional[FlightRecorder] = None) -> None:
-    """Turn tracing on (idempotent); optionally attach a flight
-    recorder in the same call."""
+    """Turn tracing on (idempotent) and take a clock anchor; optionally
+    attach a flight recorder in the same call."""
     global _enabled, _flight
     _enabled = True
+    _tracer.clock_anchor()
     if flight_recorder is not None:
         _flight = flight_recorder
+
+
+def clock_anchor() -> Dict[str, int]:
+    """Pair the spans' clock with the profiler's Unix-epoch clock again
+    (a profile that starts long after :func:`enable` asks for one as it
+    starts); returns the anchor the export will carry."""
+    return _tracer.clock_anchor()
 
 
 def disable() -> None:
@@ -117,13 +130,16 @@ def span(name: str, cat: str = "repro", *, tid: Optional[int] = None,
 
 def complete(name: str, t_start_ns: int, *, cat: str = "repro",
              args: Optional[Dict[str, Any]] = None,
-             tid: Optional[int] = None) -> None:
-    """Record a post-hoc span ending now (hot-path form; callers took
-    ``t_start_ns = obs.now_ns()`` behind their own ``enabled()`` check)."""
+             tid: Optional[int] = None,
+             t_end_ns: Optional[int] = None) -> None:
+    """Record a post-hoc span ending now, or at ``t_end_ns`` (hot-path
+    form; callers took ``t_start_ns = obs.now_ns()`` behind their own
+    ``enabled()`` check)."""
     if not _enabled:
         return
-    _tracer.complete(name, t_start_ns, now_ns(), cat=cat, args=args,
-                     tid=tid)
+    _tracer.complete(name, t_start_ns,
+                     now_ns() if t_end_ns is None else t_end_ns, cat=cat,
+                     args=args, tid=tid)
 
 
 def instant(name: str, *, cat: str = "repro",

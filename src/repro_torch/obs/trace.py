@@ -16,6 +16,12 @@ ids (one per engine worker) plus :meth:`Tracer.name_track` metadata so
 every engine renders as its own named row. Spans nest by ts/dur
 containment per track, exactly Perfetto's slice semantics.
 
+The hot path reads ``perf_counter_ns`` only. A *clock anchor*
+(:meth:`Tracer.clock_anchor`) pairs that clock with the Unix-epoch
+clock that ``torch.profiler`` stamps its host and device events with;
+the export writes the newest one into the top-level ``otherData``, and
+:func:`to_unix_ns` puts a span's ``ts`` on the profiler's timeline.
+
 The hot-path contract lives one level up (``repro_torch.obs``): call sites
 guard on ``obs.enabled()`` so a disabled tracer costs one predicate,
 not an allocation. The tracer itself never checks the global switch -
@@ -34,6 +40,12 @@ from typing import Any, Dict, List, Optional
 def now_ns() -> int:
     """Monotonic timestamp shared by every span in a process."""
     return time.perf_counter_ns()
+
+
+def to_unix_ns(ts_us: float, anchor: Dict[str, int]) -> int:
+    """An exported event's ``ts`` (us since the tracer's origin) on the
+    Unix-epoch clock of ``anchor`` (:meth:`Tracer.clock_anchor`)."""
+    return anchor["ts0_unix_ns"] + round(ts_us * 1e3)
 
 
 class Span:
@@ -95,6 +107,7 @@ class Tracer:
         self._tracks: Dict[int, str] = {}
         self.pid = os.getpid()
         self.t0_ns = now_ns()
+        self.anchor: Optional[Dict[str, int]] = None
 
     # -- recording ----------------------------------------------------------
     def _ts_us(self, t_ns: int) -> float:
@@ -132,6 +145,27 @@ class Tracer:
         with self._lock:
             self._events.append(ev)
 
+    def clock_anchor(self) -> Dict[str, int]:
+        """Pair this tracer's clock with the Unix-epoch clock and keep the
+        pair as :attr:`anchor`: of five readings of ``time.time_ns``,
+        each between two of ``perf_counter_ns``, the one read between the
+        closest two. ``ts0_unix_ns`` is the Unix time of ``ts`` 0;
+        ``uncertainty_ns`` is half the bracket."""
+        best = None
+        for _ in range(5):
+            a = now_ns()
+            u = time.time_ns()
+            b = now_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) // 2, u)
+        width, p, u = best
+        anchor = {"perf_counter_ns": p, "unix_ns": u,
+                  "ts0_unix_ns": u - (p - self.t0_ns),
+                  "uncertainty_ns": width // 2}
+        with self._lock:
+            self.anchor = anchor
+        return anchor
+
     def name_track(self, tid: int, name: str) -> None:
         """Label a logical track (rendered as the row name in Perfetto)."""
         with self._lock:
@@ -151,15 +185,20 @@ class Tracer:
         with self._lock:
             self._events.clear()
             self._tracks.clear()
+            self.anchor = None
 
     def to_chrome(self) -> Dict[str, Any]:
-        """The full trace-event JSON object (with track-name metadata)."""
+        """The full trace-event JSON object (with track-name metadata,
+        and the clock anchor, when one was taken, under ``otherData``)."""
         with self._lock:
             meta = [{"name": "thread_name", "ph": "M", "pid": self.pid,
                      "tid": tid, "args": {"name": label}}
                     for tid, label in sorted(self._tracks.items())]
-            return {"traceEvents": meta + list(self._events),
-                    "displayTimeUnit": "ms"}
+            doc = {"traceEvents": meta + list(self._events),
+                   "displayTimeUnit": "ms"}
+            if self.anchor is not None:
+                doc["otherData"] = {"clock_anchor": dict(self.anchor)}
+            return doc
 
     def export(self, path) -> Path:
         """Write Perfetto-loadable JSON to ``path`` (parents created)."""

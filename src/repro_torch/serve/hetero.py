@@ -259,16 +259,29 @@ class HeteroServeEngine:
     def _decode_tokens(self, n_requests: int) -> np.ndarray:
         """Decode one token per active request. As in the JAX package,
         the step runs on the untiered params (ROADMAP reference note
-        (b)); ``tiered_forward`` runs the tiered weights."""
+        (b)); ``tiered_forward`` runs the tiered weights.
+
+        Traced, ``engine.decode`` holds two spans that tile it: the
+        host enqueueing the step (``.dispatch``) and the host blocked on
+        the card for its tokens (``.wait``), which also waits for
+        whatever was queued before the step, such as a migration."""
         _obs = obs.enabled()
         _t0 = obs.now_ns() if _obs else 0
         logits, self._state = lm.decode_step(
             self.params, self.cfg, self._state, self._toks, self._pos)
         self._toks = torch.argmax(logits, dim=-1)
+        _t1 = obs.now_ns() if _obs else 0
         toks = self._toks[:n_requests].cpu().numpy().astype(np.int32)
         if _obs:
+            # the parent first: it shares its start with ``.dispatch``,
+            # and viewers nest same-start events in the order recorded
+            _t2 = obs.now_ns()
             obs.complete("engine.decode", _t0, cat="engine",
-                         args={"n_requests": n_requests})
+                         args={"n_requests": n_requests}, t_end_ns=_t2)
+            obs.complete("engine.decode.dispatch", _t0, cat="engine",
+                         t_end_ns=_t1)
+            obs.complete("engine.decode.wait", _t1, cat="engine",
+                         t_end_ns=_t2)
         self._pos += 1
         return toks
 

@@ -151,6 +151,9 @@ def test_dispatch_counters_record_the_device_that_ran():
         m = obs.metrics()
         assert m.value("kernels.lut_pipeline.dispatch", backend="cpu") == 1
         assert m.value("kernels.knapsack_dp.dispatch", backend="cpu") == 1
-        assert m.histogram("kernels.lut_pipeline.us", backend="cpu")
+        # no host-time histogram: on the card it timed the enqueue of
+        # asynchronous kernels, not the kernels
+        for op in ("lut_pipeline", "knapsack_dp"):
+            assert m.histogram(f"kernels.{op}.us", backend="cpu") is None
     finally:
         obs.reset()
