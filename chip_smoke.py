@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card (an
 H100; the kernels are built for sm_90a). Phases:
 
-  1. print the card's name and power limit; build the six CUDA sources
+  1. print the card's name and power limit; build the seven CUDA sources
      from ``src/repro_torch/csrc`` (nvcc, one process per source, in
      parallel), printing ``-Xptxas -v`` and the build times;
   2. hold the placement kernels bitwise (``torch.equal``) against their
@@ -41,7 +41,9 @@ H100; the kernels are built for sm_90a). Phases:
      from a seeded ``torch.Generator`` on the card) through
      ``api.engine("gpu-pool", ..., device="cuda")``, 10 slices of
      ``case6_random`` with ``tiered_forward`` on a (16, 2048) input after
-     each; every retier must tier 48 matrices, each int8 segment must
+     each; every retier must tier 48 matrices in one ``quant_split``
+     launch, every segment must equal ``split_weight`` of its matrix bit
+     for bit, each int8 segment must
      dequantize to within one step of its columns, and ``tiered_forward``
      must equal the same segments composed on the CPU (int8 tiers
      bitwise); then ``DecodeEngine`` serves 6 requests, and a 2-layer
@@ -97,7 +99,12 @@ H100; the kernels are built for sm_90a). Phases:
      sequence and the ``FleetSummary`` equal the same fleet with
      ``decode=False`` on the card and on the CPU, and ``pc.stats()``
      equals the CPU's but for the device; each worker's int8 tiers run
-     ``pim_mac`` in ``tiered_forward`` bitwise to the CPU. Then the
+     ``pim_mac`` in ``tiered_forward`` bitwise to the CPU; every
+     migration is one ``quant_split`` launch, and ``quant_split`` over
+     the 48 matrices, cycling through the fleet's placements, is held
+     to ``split_weight`` of each matrix bitwise and timed by CUDA events
+     and torch.profiler beside its byte bound and the plain
+     ``split_weight`` loop. Then the
      hierarchical fleet (4 cells x 4 engines, autoscaled to 8 per cell,
      dp, a flash crowd) and the DAG fleet on cxl-tier-3 (4 cells x 2
      engines, C=3) on the card against the CPU: the same assignments,
@@ -185,7 +192,7 @@ H100; the kernels are built for sm_90a). Phases:
   14. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
      in total and per driven path, ``train``, ``sharded`` and phase 13's
-     among them, for all nine kernels; ``pim_mac``
+     among them, for all ten kernels; ``pim_mac``
      also its comparison with the library call at M=32 under
      ``at_library_shape`` and its recurrentgemma row under
      ``at_recurrentgemma_shape``) and, last,
@@ -297,8 +304,9 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def profile_device(fn) -> dict:
-    """Device time by kernel name and the device's busy share over one
-    call of ``fn``, from torch.profiler's CUDA activity trace."""
+    """Device time and launch count by kernel name and the device's busy
+    share over one call of ``fn``, from torch.profiler's CUDA activity
+    trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -313,20 +321,23 @@ def profile_device(fn) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
     except RuntimeError as exc:           # tracing unavailable: no number
         print(f"[profile] torch.profiler failed: {exc}")
-        return dict(by_name={}, busy_ms=0.0, wall_ms=0.0)
+        return dict(by_name={}, n_by_name={}, busy_ms=0.0, wall_ms=0.0)
     by_name: dict = {}
+    n_by_name: dict = {}
     spans = []
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             ms = ev.time_range.elapsed_us() / 1e3
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
+            n_by_name[ev.name] = n_by_name.get(ev.name, 0) + 1
             spans.append((ev.time_range.start, ev.time_range.end))
     busy_us, end = 0.0, -math.inf
     for a, b in sorted(spans):            # union of device intervals
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    return dict(by_name=by_name, busy_ms=busy_us / 1e3, wall_ms=wall_ms)
+    return dict(by_name=by_name, n_by_name=n_by_name, busy_ms=busy_us / 1e3,
+                wall_ms=wall_ms)
 
 
 def op_ms(prof: dict, op: str):
@@ -876,6 +887,62 @@ def check_tiering(eng, params) -> float:
     return worst
 
 
+def tier_counts(eng, placement, d_out: int) -> dict:
+    """The columns per tier, in split order, that ``eng``'s tier plan
+    gives a (d_in, d_out) matrix under ``placement``, worked out as
+    ``_retier`` does."""
+    from repro_torch.models.hetero_linear import fractions_to_counts
+    space_to_tier = {sp: t for sp, t, _ in eng._tier_plan}
+    order = tuple(t for _, t, _ in eng._tier_plan)
+    c = fractions_to_counts(
+        d_out, {space_to_tier[k]: v for k, v in placement.items()},
+        eng.model_spec.n_params, order=order)
+    return {t: c.get(t, 0) for t in order}
+
+
+def split_diff(got: dict, want: dict, what: str) -> float:
+    """Segments ``got`` against ``want`` (``split_weight``'s): the same
+    tiers in order, fields, shapes and dtypes, and every field bitwise
+    (``torch.equal``). Returns the largest |got - want| measured over
+    their fields."""
+    import torch
+    require(list(got) == list(want), f"{what}: tiers {list(got)} != "
+            f"{list(want)}")
+    err = 0.0
+    for t, seg in want.items():
+        require(list(got[t]) == list(seg), f"{what} {t}: fields")
+        for f, v in seg.items():
+            if f == "empty":
+                require(got[t][f] is True, f"{what} {t}: not empty")
+                continue
+            g = got[t][f]
+            require(g.shape == v.shape and g.dtype == v.dtype,
+                    f"{what} {t}/{f}: {tuple(g.shape)} {g.dtype} != "
+                    f"{tuple(v.shape)} {v.dtype}")
+            if v.numel():
+                err = max(err, float((g.float() - v.float()).abs().max()))
+            require(torch.equal(g, v), f"{what} {t}/{f}: != split_weight "
+                    f"(max |diff| {err!r})")
+    return err
+
+
+def check_split_bitwise(eng, params) -> float:
+    """Every matrix ``eng``'s last retier split (one ``quant_split``
+    launch a shape on the card) against ``split_weight`` of the same
+    matrix under the same counts, bit for bit. Returns the largest
+    difference measured."""
+    from repro_torch.models.hetero_linear import split_weight
+    formats = {t: f for _, t, f in eng._tier_plan}
+    err = 0.0
+    for (lname, wname), segs in eng._tiered.items():
+        w = params["stack"][lname]["ffn"][wname].float()
+        want = split_weight(
+            w, tier_counts(eng, eng._tiered_placement, w.shape[1]),
+            formats=formats)
+        err = max(err, split_diff(segs, want, f"{lname}/{wname}"))
+    return err
+
+
 def check_tiered_forward(eng, x, y) -> dict:
     """``y = eng.tiered_forward(x)`` on the card against the same
     segments composed on the CPU: int8 tiers bitwise, bf16 tiers within
@@ -906,26 +973,30 @@ def serve_slices(cfg, params, x, label: str) -> dict:
     """Drive ``cfg``'s serving path through ``api.engine("gpu-pool")``
     for SERVE_SLICES slices of ``case6_random`` with
     ``pim_matmul.launches`` set to 0 just before and read just after.
-    Every retier must tier both FFN input matrices of every layer, each
-    int8 segment must dequantize to within one step of its columns, and
-    ``tiered_forward`` on ``x`` must equal the same segments composed on
-    the CPU (int8 tiers bitwise)."""
+    Every retier must tier both FFN input matrices of every layer in
+    one ``quant_split`` launch, every segment must equal ``split_weight``
+    of its matrix bit for bit, each int8 segment must dequantize to
+    within one step of its columns, and ``tiered_forward`` on ``x`` must
+    equal the same segments composed on the CPU (int8 tiers bitwise)."""
     import torch
 
     from repro_torch import api
     from repro_torch.core import workloads
     from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.kernels.quant_split.ops import quant_split
 
     pim_matmul.launches = 0
+    quant_split.launches = 0
     t0 = time.perf_counter()
     eng = api.engine("gpu-pool", cfg, params, max_batch=16, device="cuda")
     loads = workloads.SCENARIOS["case6_random"][:SERVE_SLICES]
-    widths, placements, worst = {}, [], 0.0
+    widths, placements, worst, split_err = {}, [], 0.0, 0.0
     for i, n in enumerate(loads):
         r = eng.run_slice(min(n, eng.max_batch))
         if r.retiered:
             require(len(eng._tiered) == 2 * cfg.n_layers,
                     f"{label} slice {i}: {len(eng._tiered)} matrices tiered")
+            split_err = max(split_err, check_split_bitwise(eng, params))
             worst = max(worst, check_tiering(eng, params))
             placements.append(dict(r.report.placement))
         y = eng.tiered_forward(x)
@@ -946,12 +1017,19 @@ def serve_slices(cfg, params, x, label: str) -> dict:
     launches = pim_matmul.launches
     elapsed = time.perf_counter() - t0
     print(f"[serve] {label} gpu-pool: {len(placements)} retiers x "
-          f"{2 * cfg.n_layers} matrices; int8 segments within {worst!r} "
+          f"{2 * cfg.n_layers} matrices, every segment == split_weight "
+          f"(max |diff| {split_err!r}); int8 segments within {worst!r} "
           f"steps; tiered_forward int8 tiers == cpu; tier widths "
           f"{ {k: sorted(v) for k, v in widths.items()} }; pim_matmul "
-          f"launches during the serving path: {launches} ({elapsed:.2f} s)")
+          f"launches during the serving path: {launches}; quant_split "
+          f"launches: {quant_split.launches} ({elapsed:.2f} s)")
     require(launches > 0, f"pim_mac never launched on {label}'s serving path")
+    # one shape of FFN matrix: one launch a migration
+    require(quant_split.launches == len(placements),
+            f"{label}: {quant_split.launches} quant_split launches for "
+            f"{len(placements)} migrations")
     return dict(engine=eng, launches=launches, placements=placements,
+                qs_launches=quant_split.launches, qs_err=split_err,
                 int8_widths=sorted({w for k, v in widths.items()
                                     if k.endswith("int8") for w in v}))
 
@@ -1001,6 +1079,8 @@ def phase_serving(cfg, out: dict) -> None:
 
     run = serve_slices(cfg, params, x, cfg.name)
     out["pim_launches"] = run["launches"]
+    out["qs_launches"] = run["qs_launches"]
+    out["qs_err"] = run["qs_err"]
     out["int8_widths"] = run["int8_widths"]
     out["engine"], out["x"] = run["engine"], x
     out["placements"] = run["placements"]
@@ -1597,6 +1677,8 @@ def phase_serving_recurrentgemma(cfg, params, out: dict) -> None:
     require(len(run["engine"]._tiered) == 52, "recurrentgemma: not 52 "
             "matrices tiered")
     out["pim_launches_rg"] = run["launches"]
+    out["qs_launches_rg"] = run["qs_launches"]
+    out["qs_err_rg"] = run["qs_err"]
     del run["engine"]
     decode_engine_run(cfg, params, cfg.name)
     K = cfg.d_model
@@ -1647,10 +1729,12 @@ def _wrappers() -> dict:
     from repro_torch.kernels.lut_pipeline.ops import minplus_combine
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_bwd
     from repro_torch.kernels.pim_mac.ops import pim_matmul
+    from repro_torch.kernels.quant_split.ops import quant_split
     from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
     from repro_torch.kernels.slstm_scan.ops import slstm_scan, slstm_scan_bwd
     return {"dp_stages": dp_stages, "minplus_combine": minplus_combine,
-            "pim_mac": pim_matmul, "rglru_scan": rglru_scan,
+            "pim_mac": pim_matmul, "quant_split": quant_split,
+            "rglru_scan": rglru_scan,
             "rglru_scan_bwd": rglru_scan_bwd, "mlstm_scan": mlstm_scan,
             "slstm_scan": slstm_scan, "mlstm_scan_bwd": mlstm_scan_bwd,
             "slstm_scan_bwd": slstm_scan_bwd}
@@ -1752,8 +1836,11 @@ def fleet_decode_run(cfg, params, card: str) -> dict:
                  f"{r['mean_us']!r} max_us {r['max_us']!r}"))
     require(migrations and all(n == 2 * cfg.n_layers for n in migrations),
             f"fleet migrations tiered {migrations} matrices")
+    require(launches["quant_split"] == len(migrations),
+            f"fleet: {launches['quant_split']} quant_split launches for "
+            f"{len(migrations)} migrations")
     print(f"[fleet] {len(migrations)} migrations, each of "
-          f"{2 * cfg.n_layers} matrices")
+          f"{2 * cfg.n_layers} matrices in one quant_split launch")
     print(f"[fleet] launches from bring-up to the end of the run: "
           f"{launches}")
     return dict(fleet=fl, res=res, pc=pc, bring_up_ms=bring_up_ms,
@@ -1862,6 +1949,80 @@ def dag_check(cfg) -> dict:
     return lc
 
 
+def quant_split_time_row(params, eng, placements) -> dict:
+    """``quant_split`` over the 48 FFN matrices of ``params`` (one
+    migration of the fleet's engines), cycling through ``placements``
+    under ``eng``'s tier plan: CUDA-event ms over the wrapper and
+    profiler device-only ms a call, beside the byte bound of the same
+    splits (each fp32 weight read once, each tier written once in its
+    format) and the plain ``split_weight`` loop over the matrices (what
+    a migration ran before the kernel) timed the same two ways. Every
+    placement's tiers must equal ``split_weight``'s bit for bit."""
+    import torch
+
+    from repro_torch.kernels.quant_split.ops import matrix_table, quant_split
+    from repro_torch.models.hetero_linear import split_weight
+
+    formats = {t: f for _, t, f in eng._tier_plan}
+    ws = [layer["ffn"][w] for layer in params["stack"].values()
+          for w in ("w_up", "w_gate")]
+    tab = matrix_table(ws)
+    (d_in, d_out), M = ws[0].shape, len(ws)
+    splits = [tier_counts(eng, p, d_out) for p in placements]
+    err = 0.0
+    for counts in splits:
+        got = quant_split(tab, counts, formats)
+        for i, w in enumerate(ws):
+            err = max(err, split_diff(
+                {t: ({"empty": True} if s.get("empty") else
+                     {f: v[i] for f, v in s.items()})
+                 for t, s in got.items()},
+                split_weight(w, counts, formats=formats),
+                f"quant_split matrix {i} at {counts}"))
+    print(f"[parity] quant_split {M} x ({d_in}, {d_out}) at each of the "
+          f"fleet's {len(splits)} placements: every tier equal to "
+          f"split_weight of each matrix (max |diff| {err!r})")
+    del got
+    calls = [0]
+
+    def kernel():
+        quant_split(tab, splits[calls[0] % len(splits)], formats)
+        calls[0] += 1
+
+    def plain():
+        counts = splits[calls[0] % len(splits)]
+        calls[0] += 1
+        for w in ws:
+            split_weight(w, counts, formats=formats)
+
+    ms = cuda_ms(kernel, reps=4 * len(splits))
+    plain_ms = cuda_ms(plain, reps=len(splits))
+    # a mean over the launches the profiler recorded: late in a whole
+    # run one profile summed about 5 of the 8
+    prof = profile_device(lambda: [kernel() for _ in splits])
+    seen = sum(n for k, n in prof["n_by_name"].items() if "quant_split" in k)
+    dev_ms = op_ms(prof, "quant_split")
+    dev_ms = dev_ms / seen if seen else None
+    prof = profile_device(lambda: [plain() for _ in splits])
+    plain_dev = (sum(prof["by_name"].values()) / len(splits)
+                 if prof["by_name"] else None)
+    nbytes = [M * d_in * (4 * d_out + sum(
+        n * (1 if formats[t] == "int8" else 2) for t, n in c.items()))
+        + 4 * M * sum(n for t, n in c.items() if formats[t] == "int8")
+        for c in splits]
+    bound = sum(nbytes) / len(nbytes) / HBM_BYTES_PER_S * 1e3
+    print(f"[time] quant_split {M} x ({d_in}, {d_out}) over the fleet's "
+          f"{len(splits)} placements {splits}: ms={ms!r} "
+          f"device_only_ms={dev_ms!r} bound_ms={bound!r} (bytes: "
+          f"{min(nbytes)}-{max(nbytes)}) device_bound_share="
+          f"{bound / dev_ms if dev_ms else None!r} ({seen} of "
+          f"{len(splits)} launches recorded); plain split_weight loop "
+          f"ms={plain_ms!r} device_only_ms={plain_dev!r}")
+    return dict(ms=ms, device_ms=dev_ms, bound_ms=bound, bound_by="bytes",
+                plain_ms=plain_ms, plain_device_ms=plain_dev,
+                library_ms=None, placements=len(splits), max_abs_err=err)
+
+
 def phase_fleet(cfg, card: str, out: dict) -> None:
     """The serving fleet (slice C): full-width internlm2_1_8b workers on
     gpu-pool-mixed, held to the same fleet without engines on the card
@@ -1923,6 +2084,13 @@ def phase_fleet(cfg, card: str, out: dict) -> None:
           f"int8 tiers == cpu; tier widths "
           f"{ {k: sorted(v) for k, v in widths.items()} }; launches on the "
           f"fleet path {run['launches']}")
+    seen = []
+    for w in fl.workers:
+        for r in w.reports:
+            if dict(r.placement) not in seen:
+                seen.append(dict(r.placement))
+    out["qs_time"] = quant_split_time_row(params, fl.workers[0].hetero,
+                                          seen)
     del fl, run["fleet"], params
     torch.cuda.empty_cache()
     out["fleet"] = {k: run[k] for k in ("bring_up_ms", "lut_ms", "d2h",
@@ -3581,6 +3749,11 @@ def main() -> int:
         "internlm2_1_8b serving": out["pim_launches"],
         "recurrentgemma_2b serving": out["pim_launches_rg"],
         "fleet (internlm2_1_8b, decode)": out["fleet"]["launches"]["pim_mac"]}
+    by_path["quant_split"] = {
+        "internlm2_1_8b serving": out["qs_launches"],
+        "recurrentgemma_2b serving": out["qs_launches_rg"],
+        "fleet (internlm2_1_8b, decode)":
+            out["fleet"]["launches"]["quant_split"]}
     by_path.update({k: {} for k in SCAN_KERNELS})
     for k in by_path:
         by_path[k]["train"] = out["train_launches"][k]
@@ -3640,6 +3813,15 @@ def main() -> int:
              max_abs_err=out["max_abs_err"]["pim_mac"],
              at_recurrentgemma_shape=out["pim_time_rg"],
              **out["pim_time"]),
+        dict(name="quant_split", route="cuda",
+             source="src/repro_torch/csrc/quant_split.cu",
+             replaces="none (XLA fuses the JAX package's split_weight, "
+                      "src/repro/models/hetero_linear.py)",
+             launches=sum(by_path["quant_split"].values()),
+             launches_by_path=by_path["quant_split"],
+             **dict(out["qs_time"], max_abs_err=max(
+                 out["qs_err"], out["qs_err_rg"],
+                 out["qs_time"]["max_abs_err"]))),
     ] + [dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
               replaces=rep, launches=sum(by_path[k].values()),
               launches_by_path=by_path[k],

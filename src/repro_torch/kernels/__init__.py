@@ -10,6 +10,12 @@
                   int8 tensor cores with an exact int32 accumulator and
                   the dequantizing epilogue; the int8 tiers of
                   ``models.hetero_linear.tiered_matmul``.
+  quant_split   - ``quant_split`` (csrc/quant_split.cu): a migration's
+                  re-tiering of every same-shaped FFN matrix in one
+                  launch, each fp32 weight read once and each tier written
+                  once as int8 (per-column scales) or bf16; the serve
+                  engine's ``_retier``. It replaces no TPU kernel (XLA
+                  fuses the JAX package's ``split_weight``).
   rglru_scan    - ``rglru_scan`` / ``rglru_scan_bwd`` (csrc/rglru_scan.cu):
                   the RG-LRU's linear recurrence over a sequence and its
                   backward, one thread per (batch row, channel).

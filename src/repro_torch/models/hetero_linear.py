@@ -41,7 +41,11 @@ def split_weight(w: torch.Tensor, counts: Dict[str, int],
     Without ``formats`` the legacy 4-tier naming applies (``SPACES``
     order, ``*_int8`` names quantized). With ``formats`` (tier ->
     "bf16" | "int8") the split follows ``counts``' own (insertion)
-    order - the substrate's ``tier_plan`` order."""
+    order - the substrate's ``tier_plan`` order.
+
+    The serve engine splits every FFN matrix of one shape at once with
+    the ``quant_split`` kernel (:mod:`repro_torch.kernels.quant_split`),
+    whose plain version is this function of each matrix."""
     if sum(counts.values()) != w.shape[1]:
         raise ValueError(f"tier counts {counts} do not sum to the "
                          f"{w.shape[1]} columns of w")

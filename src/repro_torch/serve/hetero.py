@@ -10,10 +10,12 @@ clock/energy) and whose memory kinds are weight-residency formats - bf16
 isomorphic; only (t_i, e_i) change. See DESIGN.md SS.3.
 
 ``HeteroServeEngine`` actually re-tiers the model weights every time slice
-(real re-quantization + column splits via models.hetero_linear, on the
-engine's device) and decodes, so placement changes are functionally
-exercised, while energy and latency are accounted by the core model. On
-the card the int8 tiers run the ``pim_mac`` CUDA kernel.
+(real re-quantization + column splits, on the engine's device: on the
+card one ``quant_split`` launch per shape of FFN matrix, on the CPU its
+plain version, ``split_weight`` of each matrix) and decodes, so placement
+changes are functionally exercised, while energy and latency are
+accounted by the core model. On the card the int8 tiers run the
+``pim_mac`` CUDA kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from repro_torch.core import spaces as sp
 from repro_torch.core.scheduler import SliceReport, TimeSliceScheduler
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
+from repro_torch.kernels.quant_split.ops import (MatrixTable, matrix_table,
+                                                quant_split)
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.hetero_linear import (fractions_to_counts,
@@ -191,6 +195,7 @@ class HeteroServeEngine:
         self._tier_plan = tuple(plan()) if plan else _DEFAULT_TIER_PLAN
         self._tiered: Optional[Dict] = None
         self._tiered_placement: Optional[Dict[str, int]] = None
+        self._tables: Dict[tuple, MatrixTable] = {}
         self._toks = torch.zeros((max_batch,), dtype=torch.long, device=dev)
         self._state = lm.init_decode_state(cfg, max_batch, 128, device=dev)
         self._pos = 0
@@ -198,6 +203,10 @@ class HeteroServeEngine:
 
     # -- weight tiering ----------------------------------------------------
     def _retier(self, placement: Dict[str, int]) -> bool:
+        """Re-split every FFN matrix to ``placement``. On the card one
+        ``quant_split`` launch per shape of matrix, each matrix's
+        segments the ``[i]`` views of its stacked outputs; on the CPU the
+        kernel's plain version, ``split_weight`` of each matrix."""
         if placement == self._tiered_placement:
             return False
         _obs = obs.enabled()
@@ -206,7 +215,8 @@ class HeteroServeEngine:
         space_to_tier = {s: t for s, t, _ in self._tier_plan}
         formats = {t: f for _, t, f in self._tier_plan}
         order = tuple(t for _, t, _ in self._tier_plan)
-        tiers = {}
+        share = {space_to_tier[k]: v for k, v in placement.items()}
+        keys, groups = [], {}
         # walks the stack's entries as the JAX package does: a "scan"
         # group holds its blocks one level down, so a scanned stack tiers
         # no matrix there either (ROADMAP reference note (c))
@@ -226,13 +236,24 @@ class HeteroServeEngine:
                     raise AssertionError(
                         f"{lname}/{wname}: expert weights {tuple(w.shape)}"
                         f" cannot be split by columns")
-                counts = fractions_to_counts(
-                    w.shape[-1],
-                    {space_to_tier[k]: v for k, v in placement.items()},
-                    K, order=order)
-                tiers[(lname, wname)] = split_weight(
-                    w.float(), {t: counts.get(t, 0) for t in order},
-                    formats=formats)
+                keys.append(((lname, wname), tuple(w.shape)))
+                groups.setdefault(tuple(w.shape), []).append(
+                    w.float().contiguous())
+        # the counts depend only on d_out
+        segs = {}
+        for shape, ws in groups.items():
+            counts = fractions_to_counts(shape[1], share, K, order=order)
+            counts = {t: counts.get(t, 0) for t in order}
+            if self.device.type == "cpu":
+                segs[shape] = iter([split_weight(w, counts, formats=formats)
+                                    for w in ws])
+                continue
+            out = quant_split(self._matrix_table(shape, ws), counts, formats)
+            segs[shape] = iter([{t: ({"empty": True} if s.get("empty") else
+                                     {f: v[i] for f, v in s.items()})
+                                 for t, s in out.items()}
+                                for i in range(len(ws))])
+        tiers = {key: next(segs[shape]) for key, shape in keys}
         self._tiered = tiers
         self._tiered_placement = dict(placement)
         if _obs:
@@ -242,6 +263,16 @@ class HeteroServeEngine:
                                "n_weights": len(tiers)})
             obs.counter("engine.migrations")
         return True
+
+    def _matrix_table(self, shape: tuple, ws: List[torch.Tensor]
+                      ) -> MatrixTable:
+        """The pointer table of one shape's matrices, built once: it is
+        rebuilt only when a matrix is another tensor than before."""
+        tab = self._tables.get(shape)
+        if tab is None or len(tab.ws) != len(ws) or any(
+                a is not b for a, b in zip(tab.ws, ws)):
+            tab = self._tables[shape] = matrix_table(ws)
+        return tab
 
     def apply_placement(self, placement: Dict[str, int]) -> bool:
         """Re-tier the model weights to ``placement`` (no-op if unchanged).

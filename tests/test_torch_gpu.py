@@ -964,3 +964,163 @@ def test_cuda_recurrent_blocks_launch_one_scan_each(arch):
                 assert err <= 1e-4 * max(scale, 1e-30), (kind, k, err, scale)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# -- quant_split, the migration's re-tiering --------------------------------
+
+# (plan, columns per tier) at internlm2's (2048, 8192): the legacy
+# bf16/int8 pools, the cxl substrates' int8/int8 pairs and cxl-tier-3's
+# three int8 pools; widths 1, 15 and 17, empty tiers, one tier over
+# every column, all int8 and all bf16
+QS_PLANS = {
+    "legacy": (("hp_bf16", "bf16"), ("hp_int8", "int8"),
+               ("lp_bf16", "bf16"), ("lp_int8", "int8")),
+    "cxl": (("hp_ddr_int8", "int8"), ("hp_cxl_int8", "int8"),
+            ("lp_ddr_int8", "int8"), ("lp_cxl_int8", "int8")),
+    "cxl3": (("hbm_int8", "int8"), ("ddr_int8", "int8"),
+             ("cxl_int8", "int8")),
+}
+QS_FULL = [
+    ("legacy", (2100, 1900, 2200, 1992)), ("legacy", (1, 15, 17, 8159)),
+    ("legacy", (0, 8192, 0, 0)), ("legacy", (8192, 0, 0, 0)),
+    ("legacy", (17, 0, 8160, 15)),
+    ("cxl", (17, 0, 4095, 4080)), ("cxl", (0, 0, 0, 8192)),
+    ("cxl3", (15, 1, 8176)), ("cxl3", (2731, 2730, 2731)),
+]
+# (M, d_in, d_out, plan, widths, offset): d_in below the cluster's 8
+# blocks, d_out off the 32-column grid and off 4 (4-byte loads), a
+# matrix 4 bytes off 16-byte alignment, and recurrentgemma_2b's width
+QS_EDGE = [
+    (3, 37, 100, "legacy", (1, 15, 17, 67), 0),
+    (2, 5, 33, "cxl3", (0, 0, 33), 0),
+    (2, 64, 1001, "cxl", (17, 0, 15, 969), 0),
+    (2, 64, 96, "legacy", (30, 2, 0, 64), 1),
+    (2, 2560, 7680, "legacy", (2000, 1999, 1, 3680), 0),
+]
+
+
+def _qs_weights(M, d_in, d_out, dev, seed, offset=0):
+    """M random (d_in, d_out) fp32 matrices, ``offset`` floats into their
+    allocations, each with an all-zero column (the 1e-8 scale floor) and
+    two columns of exact .5 quotients: maxima 127 and 63.5 give scales 1
+    and 0.5, so w / scale ties between two integers."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ws = []
+    for _ in range(M):
+        buf = torch.randn(d_in * d_out + offset, generator=g, device=dev)
+        ws.append(buf[offset:].view(d_in, d_out))
+    ties = torch.arange(d_in, dtype=torch.float32, device=dev) % 9 - 4.5
+    for w in ws:
+        w[:, d_out // 3] = 0.0
+        w[:, d_out - 1] = ties
+        w[0, d_out - 1] = 127.0
+        if d_out > 2:
+            w[:, 1] = ties * 0.5
+            w[0, 1] = 63.5
+    return ws
+
+
+def _qs_check(ws, plan, widths):
+    """quant_split of ``ws`` against split_weight of each matrix on the
+    card: the same tiers in order, fields, shapes, dtypes and bits."""
+    from repro_torch.kernels.quant_split import ops as qops
+    from repro_torch.models.hetero_linear import split_weight
+    counts = dict(zip((n for n, _ in QS_PLANS[plan]), widths))
+    formats = dict(QS_PLANS[plan])
+    n0 = qops.quant_split.launches
+    got = qops.quant_split(qops.matrix_table(ws), counts, formats)
+    torch.cuda.synchronize()
+    assert qops.quant_split.launches == n0 + 1
+    assert list(got) == list(counts)
+    for i, w in enumerate(ws):
+        want = split_weight(w, dict(counts), formats=formats)
+        for name, seg in want.items():
+            if seg.get("empty"):
+                assert got[name] == {"empty": True}
+                continue
+            assert list(got[name]) == list(seg)
+            for f, v in seg.items():
+                mine = got[name][f][i]
+                assert mine.shape == v.shape and mine.dtype == v.dtype
+                assert torch.equal(mine, v), (i, name, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan,widths", QS_FULL)
+def test_cuda_quant_split_bitwise_at_the_fleet_shape(plan, widths):
+    """48 x (2048, 8192), one launch, every tier bitwise to split_weight."""
+    dev = _card()
+    ws = _qs_weights(48, 2048, 8192, dev, seed=sum(widths) + len(plan))
+    _qs_check(ws, plan, widths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,d_in,d_out,plan,widths,offset", QS_EDGE)
+def test_cuda_quant_split_edges_bitwise(M, d_in, d_out, plan, widths,
+                                        offset):
+    from repro_torch.kernels.quant_split import ops as qops
+    dev = _card()
+    ws = _qs_weights(M, d_in, d_out, dev, seed=d_in + d_out, offset=offset)
+    assert qops.matrix_table(ws).vec == (d_out % 4 == 0 and offset == 0)
+    _qs_check(ws, plan, widths)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_split_raises_instead_of_falling_back():
+    from repro_torch.kernels.quant_split import ops as qops
+    dev = _card()
+    rows = qops.CLUSTER * qops.MAX_ROWS + 1
+    tab = qops.matrix_table([torch.zeros((rows, 8), device=dev)])
+    with pytest.raises(ValueError, match="rows a block"):
+        qops.quant_split(tab, {"a": 8}, {"a": "int8"})
+    tab = qops.matrix_table([torch.zeros((4, 8), device=dev)])
+    with pytest.raises(ValueError, match="do not sum"):
+        qops.quant_split(tab, {"a": 7}, {"a": "int8"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widen", [False, True])
+def test_cuda_migration_is_one_quant_split_per_shape(widen):
+    """A migration of the serve engine on the card launches quant_split
+    once per shape of FFN matrix (one for internlm2; two with its last
+    layer made wider), its pointer tables built once, and its tiers
+    equal the CPU engine's bit for bit."""
+    from repro_torch import api
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.quant_split import ops as qops
+    from repro_torch.models import lm
+    dev = _card()
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(5), cfg)
+    if widen:
+        last = list(params["stack"])[-1]
+        g = torch.Generator().manual_seed(6)
+        for wname in ("w_up", "w_gate"):
+            params["stack"][last]["ffn"][wname] = torch.randn(
+                (cfg.d_model, 2 * cfg.d_ff + 3), generator=g)
+    ours = api.engine("gpu-pool", cfg, _to(params, dev), max_batch=4,
+                      device=dev)
+    ref = api.engine("gpu-pool", cfg, params, max_batch=4, device="cpu")
+    spaces = [s for s, _, _ in ours._tier_plan]
+    K = ours.model_spec.n_params
+    tables = None
+    for placement in ({spaces[0]: K // 3, spaces[1]: K // 3,
+                       spaces[3]: K - 2 * (K // 3)}, {spaces[1]: K}):
+        n0 = qops.quant_split.launches
+        assert ours.apply_placement(placement)
+        torch.cuda.synchronize()
+        assert qops.quant_split.launches == n0 + (2 if widen else 1)
+        tables = tables or dict(ours._tables)
+        assert len(tables) == (2 if widen else 1)
+        assert all(ours._tables[k] is v for k, v in tables.items())
+        assert ref.apply_placement(placement)
+        assert list(ours._tiered) == list(ref._tiered)
+        for key, segs in ref._tiered.items():
+            assert list(ours._tiered[key]) == list(segs)
+            for tier, seg in segs.items():
+                for f, v in seg.items():
+                    mine = ours._tiered[key][tier][f]
+                    if f == "empty":
+                        assert mine is True
+                    else:
+                        assert torch.equal(mine.cpu(), v), (key, tier, f)

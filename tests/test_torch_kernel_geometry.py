@@ -18,6 +18,10 @@ one lane and its ring in shared memory, and an emulation of the kernels'
 tile schedule (the ring's stages, each lane's copies, the backward's
 shifted a and h tiles and its edge rules) copies every input element
 once, writes every output once and equals the plain loops bit for bit.
+``quant_split``'s plan (``kernels/quant_split/ops.py::split_plan``: tier
+offsets, 32-column strips, rows a block) and an emulation of its blocks
+stage every input element once and write every output element once,
+equal to ``split_weight`` of each matrix.
 """
 import math
 
@@ -33,10 +37,13 @@ from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
 from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
 from repro_torch.kernels.lut_pipeline.ref import tie_heavy_rows  # noqa: E402
 from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
+from repro_torch.kernels.quant_split import ops as qops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rops  # noqa: E402
 from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
     rglru_scan_bwd_ref, rglru_scan_ref)
 from repro_torch.kernels.slstm_scan import ops as sops  # noqa: E402
+from repro_torch.models.hetero_linear import (  # noqa: E402
+    split_weight as hl_split_weight)
 
 # M, K, N: decode shapes, the library-call shape, prefill, the ragged
 # shapes of the card tests, and K around the 64-row step
@@ -735,3 +742,244 @@ def test_slstm_bwd_plan_rejects_what_the_kernels_cannot_hold():
     assert sops.slstm_bwd_plan(2 ** 20, 64, 2047 * 32).tickets < 2 ** 31
     with pytest.raises(ValueError, match="grid limit"):
         sops.slstm_bwd_plan(2 ** 20, 128, 2048 * 32)
+
+
+# -- quant_split ---------------------------------------------------------
+
+# the serve engine's three tier plans: the legacy bf16/int8 pools, the
+# cxl substrates' int8/int8 pairs and cxl-tier-3's three int8 pools
+QS_PLANS = {
+    "legacy": (("hp_bf16", "bf16"), ("hp_int8", "int8"),
+               ("lp_bf16", "bf16"), ("lp_int8", "int8")),
+    "cxl": (("hp_ddr_int8", "int8"), ("hp_cxl_int8", "int8"),
+            ("lp_ddr_int8", "int8"), ("lp_cxl_int8", "int8")),
+    "cxl3": (("hbm_int8", "int8"), ("ddr_int8", "int8"),
+             ("cxl_int8", "int8")),
+}
+# (d_in, d_out, plan, columns per tier): widths 1, 15 and 17, empty
+# tiers, a tier over every column, d_in below the cluster's 8 blocks,
+# tiers straddling strips, and d_out off the 32-column grid
+QS_CASES = [
+    (37, 100, "legacy", (1, 15, 17, 67)),
+    (64, 96, "legacy", (0, 96, 0, 0)),
+    (64, 96, "legacy", (96, 0, 0, 0)),
+    (9, 70, "cxl", (17, 0, 15, 38)),
+    (300, 129, "cxl3", (40, 1, 88)),
+    (5, 33, "cxl3", (0, 0, 33)),
+    (16, 64, "cxl", (32, 0, 0, 32)),
+]
+
+
+def _qs_plan(d_in, d_out, plan, widths):
+    tiers = tuple((name, fmt == "int8", n)
+                  for (name, fmt), n in zip(QS_PLANS[plan], widths))
+    return qops.split_plan(d_in, d_out, tiers)
+
+
+def _qs_tier_of(plan, col):
+    """The kernel's lane rule: a column's tier is the last one starting
+    at or before it (an empty tier starts where the next one does)."""
+    mine = plan.tiers[0]
+    for t in plan.tiers[1:]:
+        if col >= t.off:
+            mine = t
+    return mine
+
+
+def _qs_inputs(M, d_in, d_out, seed):
+    """M random matrices with an all-zero column (the 1e-8 scale floor)
+    and a column of exact .5 quotients: its max 127 gives scale 1, so
+    w / scale ties between two integers (round half to even)."""
+    g = torch.Generator().manual_seed(seed)
+    ws = [torch.randn((d_in, d_out), generator=g) for _ in range(M)]
+    ties = torch.arange(d_in, dtype=torch.float32) % 9 - 4.5
+    ties[0] = 127.0
+    for w in ws:
+        w[:, d_out // 3] = 0.0
+        w[:, d_out - 1] = ties
+    return ws
+
+
+def _emulate_quant_split(ws, plan, vec):
+    """The quant_split kernel's schedule on the CPU, block for block: for
+    every matrix, strip and cluster rank, the rows the block stages (16
+    bytes a thread if ``vec``, else 4) into its tile, each lane's column
+    and tier, the int8 lanes' block maxima combined over the cluster, and
+    each warp's rows written at the kernel's flat output index. Returns
+    ``{tier: {field: (flat values, writes per element)}}``."""
+    M, (d_in, d_out) = len(ws), ws[0].shape
+    C = qops.COLS
+    flat = {}
+    for t in plan.tiers:
+        if t.n == 0:
+            continue
+        size = M * d_in * t.n
+        dt = torch.int8 if t.int8 else torch.bfloat16
+        flat[t.name] = {("q" if t.int8 else "w"): (
+            torch.zeros(size, dtype=dt), torch.zeros(size, dtype=torch.int64))}
+        if t.int8:
+            flat[t.name]["scale"] = (torch.zeros(M * t.n),
+                                     torch.zeros(M * t.n, dtype=torch.int64))
+    for m, w in enumerate(ws):
+        for g in range(plan.strips):
+            c0 = g * C
+            lanes = [(c0 + j, _qs_tier_of(plan, c0 + j))
+                     for j in range(C) if c0 + j < d_out]
+            blocks = []
+            for rank in range(qops.CLUSTER):
+                r0 = rank * plan.rows
+                rows = max(0, min(plan.rows, d_in - r0))
+                tile = torch.full((rows * C,), float("nan"))
+                staged = torch.zeros(rows * C, dtype=torch.int64)
+                if vec:
+                    for k in range(rows * C // 4):
+                        col = c0 + 4 * (k & 7)
+                        if col < d_out:
+                            tile[4 * k:4 * k + 4] = w[r0 + (k >> 3),
+                                                      col:col + 4]
+                            staged[4 * k:4 * k + 4] += 1
+                else:
+                    for k in range(rows * C):
+                        col = c0 + (k & 31)
+                        if col < d_out:
+                            tile[k] = w[r0 + (k >> 5), col]
+                            staged[k] += 1
+                tile, staged = tile.view(rows, C), staged.view(rows, C)
+                # every staged column a lane reads was copied once
+                assert bool((staged[:, :len(lanes)] == 1).all())
+                assert bool((staged[:, len(lanes):] == 0).all())
+                # each warp's rows: warp, warp + 8, ... below `rows`
+                mine = torch.cat([torch.arange(v, max(v, rows), qops.WARPS)
+                                  for v in range(qops.WARPS)])
+                blocks.append((rank, r0, mine, tile))
+            amax = {}
+            for _, _, mine, tile in blocks:
+                for j, (c, t) in enumerate(lanes):
+                    if t.int8 and mine.numel():
+                        a = tile[mine, j].abs().amax()
+                        amax[c] = torch.maximum(amax.get(c, a), a)
+            for rank, r0, mine, tile in blocks:
+                for j, (c, t) in enumerate(lanes):
+                    idx = (m * d_in + r0 + mine) * t.n + (c - t.off)
+                    if not t.int8:
+                        vals, n_w = flat[t.name]["w"]
+                        vals[idx] = tile[mine, j].to(torch.bfloat16)
+                        n_w[idx] += 1
+                        continue
+                    a = amax.get(c, torch.tensor(0.0))
+                    s = a.clamp_min(1e-8) / torch.tensor(127.0)
+                    if rank == 0:
+                        vals, n_w = flat[t.name]["scale"]
+                        vals[m * t.n + c - t.off] = s
+                        n_w[m * t.n + c - t.off] += 1
+                    v = torch.round(tile[mine, j] / s).clamp(-127, 127)
+                    vals, n_w = flat[t.name]["q"]
+                    vals[idx] = v.to(torch.int8)
+                    n_w[idx] += 1
+    return flat
+
+
+@pytest.mark.parametrize("d_in,d_out,plan,widths", QS_CASES)
+def test_quant_split_plan_offsets_strips_and_rows(d_in, d_out, plan, widths):
+    p = _qs_plan(d_in, d_out, plan, widths)
+    # tiers in split order, contiguous from column 0 to d_out
+    assert [t.name for t in p.tiers] == [n for n, _ in QS_PLANS[plan]]
+    assert [t.n for t in p.tiers] == list(widths)
+    assert [t.off for t in p.tiers] == [sum(widths[:k])
+                                        for k in range(len(widths))]
+    assert [t.int8 for t in p.tiers] == [f == "int8"
+                                         for _, f in QS_PLANS[plan]]
+    # every column in one strip, every row in one block of the cluster
+    assert p.strips == math.ceil(d_out / qops.COLS)
+    assert p.rows == math.ceil(d_in / qops.CLUSTER)
+    assert p.smem == p.rows * qops.COLS * 4
+    assert p.smem + qops.STATIC_SMEM <= qops.MAX_SMEM
+    # the lane rule serves each column from the tier that holds it
+    for c in range(d_out):
+        t = _qs_tier_of(p, c)
+        assert t.off <= c < t.off + t.n
+
+
+def _split_weight_stacked(ws, counts, formats):
+    """``split_weight`` of each matrix, each output stacked over them."""
+    per = [hl_split_weight(w, dict(counts), formats=formats) for w in ws]
+    return {name: (dict(seg) if seg.get("empty") else
+                   {k: torch.stack([p[name][k] for p in per]) for k in seg})
+            for name, seg in per[0].items()}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("d_in,d_out,plan,widths", QS_CASES)
+def test_quant_split_schedule_writes_each_output_once_bitwise(
+        d_in, d_out, plan, widths, aligned):
+    """The kernel's schedule with 16-byte staging where the matrices
+    allow it (``aligned`` and d_out % 4 == 0) and with 4-byte staging,
+    which the kernel takes for matrices off 16-byte alignment."""
+    ws = _qs_inputs(3, d_in, d_out, seed=d_in * 31 + d_out)
+    p = _qs_plan(d_in, d_out, plan, widths)
+    counts = dict(zip((n for n, _ in QS_PLANS[plan]), widths))
+    formats = dict(QS_PLANS[plan])
+    want = _split_weight_stacked(ws, counts, formats)
+    got = _emulate_quant_split(ws, p, vec=aligned and d_out % 4 == 0)
+    assert list(want) == list(counts)
+    for t in p.tiers:
+        if t.n == 0:
+            assert want[t.name] == {"empty": True} and t.name not in got
+            continue
+        assert list(got[t.name]) == list(want[t.name])
+        for f, (vals, writes) in got[t.name].items():
+            assert (writes == 1).all(), (t.name, f)
+            assert torch.equal(vals.reshape(want[t.name][f].shape),
+                               want[t.name][f]), (t.name, f)
+
+
+def test_quant_split_plan_at_the_fleet_shape():
+    """internlm2_1_8b's 48 x (2048, 8192): 256 strips of 8 blocks
+    whatever the placement, each block 256 rows in 32 KB, six blocks an
+    SM by shared memory (228 KB an SM, 1 KB of it reserved a block)."""
+    for widths in ((0, 1568, 0, 6624), (2100, 1900, 2200, 1992)):
+        p = _qs_plan(2048, 8192, "legacy", widths)
+        assert (p.strips, p.rows, p.smem) == (256, 256, 32768)
+        assert 228 * 1024 // (p.smem + qops.STATIC_SMEM + 1024) == 6
+
+
+def test_quant_split_plan_rejects_what_the_kernel_cannot_hold():
+    ok = (("a", True, 8),)
+    d_max = qops.CLUSTER * qops.MAX_ROWS
+    assert qops.split_plan(d_max, 8, ok).rows == qops.MAX_ROWS
+    with pytest.raises(ValueError, match="rows a block"):
+        qops.split_plan(d_max + 1, 8, ok)
+    with pytest.raises(ValueError, match="do not sum"):
+        qops.split_plan(4, 9, ok)
+    with pytest.raises(ValueError, match="-1 columns"):
+        qops.split_plan(4, 8, (("a", True, 9), ("b", False, -1)))
+    with pytest.raises(ValueError, match="1 to 8 tiers"):
+        qops.split_plan(4, 9, tuple((f"t{k}", True, 1) for k in range(9)))
+    with pytest.raises(ValueError, match="d_in, d_out >= 1"):
+        qops.split_plan(0, 8, ok)
+
+
+def test_quant_split_matrix_table_checks_and_alignment():
+    ws = [torch.zeros((4, 8)), torch.ones((4, 8))]
+    tab = qops.matrix_table(ws)
+    assert tab.ws[0] is ws[0] and tab.ptrs is None and tab.vec
+    assert not qops.matrix_table([torch.zeros((4, 6))]).vec   # d_out % 4
+    odd = torch.zeros(40)[1:33].view(4, 8)                    # 4-byte offset
+    assert not qops.matrix_table([odd]).vec
+    for bad, err in [([], ValueError), ([torch.zeros((4, 8)).double()],
+                                        TypeError),
+                     ([torch.zeros((4, 8)), torch.zeros((4, 9))], ValueError),
+                     ([torch.zeros((8, 4)).t()], ValueError),
+                     ([torch.zeros((2, 4, 8))], ValueError)]:
+        with pytest.raises(err):
+            qops.matrix_table(bad)
+
+
+def test_quant_split_takes_cuda_tensors_only():
+    """No plain path inside the wrapper: CPU matrices raise, launch
+    nothing, and the serve engine runs split_weight there itself."""
+    ws = _qs_inputs(2, 24, 50, seed=7)
+    n0 = qops.quant_split.launches
+    with pytest.raises(ValueError, match="cuda tensors"):
+        qops.quant_split(qops.matrix_table(ws), {"a": 50}, {"a": "int8"})
+    assert qops.quant_split.launches == n0

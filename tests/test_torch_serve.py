@@ -324,6 +324,77 @@ def test_hetero_engine_matches_jax(name, monkeypatch):
     _assert_tokens_match(toks_t, toks_j, rec_j.logits)
 
 
+def _tiers_by_split_weight(eng, placement):
+    """The engine's tiers as ``_retier`` made them one matrix at a time:
+    ``split_weight`` of each FFN matrix, in the stack's order."""
+    plan = eng._tier_plan
+    space_to_tier = {s: t for s, t, _ in plan}
+    formats = {t: f for _, t, f in plan}
+    order = tuple(t for _, t, _ in plan)
+    share = {space_to_tier[k]: v for k, v in placement.items()}
+    tiers = {}
+    for lname, layer in eng.params["stack"].items():
+        for wname in ("w_up", "w_gate"):
+            w = layer["ffn"][wname]
+            counts = hl.fractions_to_counts(
+                w.shape[-1], share, eng.model_spec.n_params, order=order)
+            tiers[(lname, wname)] = hl.split_weight(
+                w.float(), {t: counts.get(t, 0) for t in order},
+                formats=formats)
+    return tiers
+
+
+@pytest.mark.parametrize("name", ["gpu-pool", "cxl-tier", "cxl-tier-3"])
+def test_retier_groups_by_shape_and_equals_split_weight(name, monkeypatch):
+    """The FFN matrices grouped by shape (the last layer made wider, so
+    two groups), the column counts worked out once a group, and segment
+    dicts equal to ``split_weight``'s of each matrix in keys, order,
+    shapes, dtypes and values, for the legacy bf16/int8 plan, the cxl
+    int8/int8 pairs and cxl-tier-3's 3-way split. (On the card each
+    group is one ``quant_split`` launch: tests/test_torch_gpu.py.)"""
+    cfg = get_smoke_config("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(3), cfg)
+    last = list(params["stack"])[-1]
+    g = torch.Generator().manual_seed(4)
+    wide = (cfg.d_model, 2 * cfg.d_ff + 3)
+    for wname in ("w_up", "w_gate"):
+        params["stack"][last]["ffn"][wname] = torch.randn(wide, generator=g)
+    eng = api.engine(name, cfg, params, max_batch=4, device="cpu")
+    calls = []
+    real = hetero_mod.fractions_to_counts
+
+    def spy(d_out, *args, **kw):
+        calls.append(d_out)
+        return real(d_out, *args, **kw)
+    monkeypatch.setattr(hetero_mod, "fractions_to_counts", spy)
+    spaces = [s for s, _, _ in eng._tier_plan]
+    K = eng.model_spec.n_params
+    placements = [eng.sched.step(n).placement for n in (1, 4, 9)] + [
+        {spaces[1]: K},                                  # one tier, all
+        {spaces[0]: K // 3, spaces[-1]: K - K // 3}]     # empty middles
+    moved = 0
+    for placement in placements:
+        calls.clear()
+        if not eng.apply_placement(placement):
+            continue
+        moved += 1
+        assert calls == [cfg.d_ff, wide[1]]
+        want = _tiers_by_split_weight(eng, placement)
+        assert list(eng._tiered) == list(want)
+        for key, segs in want.items():
+            got = eng._tiered[key]
+            assert list(got) == list(segs), key
+            for tier, seg in segs.items():
+                assert list(got[tier]) == list(seg), (key, tier)
+                for f, v in seg.items():
+                    if f == "empty":
+                        assert got[tier][f] is True
+                        continue
+                    assert got[tier][f].dtype == v.dtype
+                    assert torch.equal(got[tier][f], v), (key, tier, f)
+    assert moved >= 4
+
+
 # the reference's defaults, then each keyword moved off its default
 CHIP_KEYWORDS = [
     {},
