@@ -109,7 +109,13 @@ H100; the kernels are built for sm_90a). Phases:
      dp, a flash crowd) and the DAG fleet on cxl-tier-3 (4 cells x 2
      engines, C=3) on the card against the CPU: the same assignments,
      scale events (new workers paying 0 LUT builds), summaries and
-     ``DagResult``;
+     ``DagResult``. Last the same fleet (four engines, max_batch 64) on
+     an MoE model, the benchmark cell's share of deepseek_v2_lite
+     (experts 0-15 of 64 in each MoE layer, all else whole): every
+     migration re-tiers 886 matrices (832 expert views) in 3
+     ``quant_split`` launches, each segment held to ``split_weight``
+     bitwise right after it, and each shape's launch timed over the
+     fleet's placements (alone: ``python3 chip_smoke.py --moe-fleet``);
   11. training (slice D) with every launch count set to 0 just before
      it: loss and gradients of every family that trains (dense, MoE,
      RG-LRU, xLSTM, VLM with prefix embeddings, encoder-decoder with
@@ -926,6 +932,16 @@ def split_diff(got: dict, want: dict, what: str) -> float:
     return err
 
 
+def tiered_matrix(params, key: tuple):
+    """The matrix of a key of ``_tiered``: (layer, name), an MoE
+    layer's (layer, name, expert), or (layer, "shared" or "dense_mlp",
+    name)."""
+    node = params["stack"][key[0]]["ffn"]
+    for k in key[1:]:
+        node = node[k]
+    return node
+
+
 def check_split_bitwise(eng, params) -> float:
     """Every matrix ``eng``'s last retier split (one ``quant_split``
     launch a shape on the card) against ``split_weight`` of the same
@@ -934,12 +950,13 @@ def check_split_bitwise(eng, params) -> float:
     from repro_torch.models.hetero_linear import split_weight
     formats = {t: f for _, t, f in eng._tier_plan}
     err = 0.0
-    for (lname, wname), segs in eng._tiered.items():
-        w = params["stack"][lname]["ffn"][wname].float()
+    for key, segs in eng._tiered.items():
+        w = tiered_matrix(params, key).float()
         want = split_weight(
             w, tier_counts(eng, eng._tiered_placement, w.shape[1]),
             formats=formats)
-        err = max(err, split_diff(segs, want, f"{lname}/{wname}"))
+        err = max(err, split_diff(segs, want,
+                                  "/".join(str(k) for k in key)))
     return err
 
 
@@ -1949,10 +1966,10 @@ def dag_check(cfg) -> dict:
     return lc
 
 
-def quant_split_time_row(params, eng, placements) -> dict:
-    """``quant_split`` over the 48 FFN matrices of ``params`` (one
-    migration of the fleet's engines), cycling through ``placements``
-    under ``eng``'s tier plan: CUDA-event ms over the wrapper and
+def quant_split_time_row(ws, eng, placements) -> dict:
+    """``quant_split`` over the matrices ``ws`` of one shape (one launch
+    of a migration of the fleet's engines), cycling through
+    ``placements`` under ``eng``'s tier plan: CUDA-event ms over the wrapper and
     profiler device-only ms a call, beside the byte bound of the same
     splits (each fp32 weight read once, each tier written once in its
     format) and the plain ``split_weight`` loop over the matrices (what
@@ -1964,8 +1981,6 @@ def quant_split_time_row(params, eng, placements) -> dict:
     from repro_torch.models.hetero_linear import split_weight
 
     formats = {t: f for _, t, f in eng._tier_plan}
-    ws = [layer["ffn"][w] for layer in params["stack"].values()
-          for w in ("w_up", "w_gate")]
     tab = matrix_table(ws)
     (d_in, d_out), M = ws[0].shape, len(ws)
     splits = [tier_counts(eng, p, d_out) for p in placements]
@@ -2021,6 +2036,120 @@ def quant_split_time_row(params, eng, placements) -> dict:
     return dict(ms=ms, device_ms=dev_ms, bound_ms=bound, bound_by="bytes",
                 plain_ms=plain_ms, plain_device_ms=plain_dev,
                 library_ms=None, placements=len(splits), max_abs_err=err)
+
+
+def moe_fleet_config():
+    """deepseek_v2_lite as the benchmark's cell holds it: experts 0-15 of
+    each MoE layer's 64 (one card of expert parallelism 4), all else
+    whole, at full width and depth."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek_v2_lite"),
+                               moe_held=(0, 16))
+
+
+def phase_moe_fleet(card: str, out: dict) -> None:
+    """The serving fleet on an MoE model, the benchmark cell's share of
+    deepseek_v2_lite (``moe_fleet_config``): ``api.fleet("gpu-pool-mixed",
+    ..., n_engines=4, decode=True, solver="dp", dvfs=True, max_batch=64)``
+    over the mmpp trace with every launch count set to 0 just before
+    bring-up. Each migration re-tiers 886 matrices (each held expert's
+    ``w_up``/``w_gate`` as a view of its stacked leaf, 832; the shared
+    experts', 52; the dense layer's, 2) in 3 ``quant_split`` launches, one
+    a shape, and right after it every segment is held to ``split_weight``
+    of its matrix bit for bit. Then each shape's launch is timed over the
+    fleet's placements (``quant_split_time_row``). Run alone with
+    ``python3 chip_smoke.py --moe-fleet``."""
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.models import lm
+    from repro_torch.serve.hetero import HeteroServeEngine, _ffn_matrices
+
+    cfg = moe_fleet_config()
+    t0 = time.perf_counter()
+    params = lm.init_lm(torch.Generator(device="cuda").manual_seed(29), cfg)
+    torch.cuda.synchronize()
+    groups = {}
+    for layer in params["stack"].values():
+        for _, w in _ffn_matrices(layer["ffn"]):
+            groups.setdefault(tuple(w.shape), []).append(w)
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    views = 2 * n_moe * cfg.held_experts[1]
+    n_weights = sum(len(ws) for ws in groups.values())
+    print(f"[moe] {cfg.name}, experts {cfg.held_experts} held: "
+          f"{sum(t.numel() for t in _leaves(params))} params, "
+          f"{model_bytes(params)} bytes; FFN matrices a migration "
+          f"{ {k: len(v) for k, v in groups.items()} } "
+          f"({time.perf_counter() - t0:.2f} s)")
+    require(len(groups) == 3 and n_weights == views + 2 * n_moe
+            + 2 * cfg.first_dense_layers, f"moe: matrices {groups.keys()}")
+
+    checked = []
+    retier0 = HeteroServeEngine._retier
+
+    def retier(eng, placement):
+        moved = retier0(eng, placement)
+        if moved:
+            require(len(eng._tiered) == n_weights,
+                    f"moe: {len(eng._tiered)} matrices tiered")
+            checked.append(check_split_bitwise(eng, params))
+        return moved
+
+    obs.reset()
+    obs.enable()
+    zero_kernel_counts()
+    HeteroServeEngine._retier = retier
+    try:
+        t0 = time.perf_counter()
+        fl = api.fleet("gpu-pool-mixed", cfg, params=params, decode=True,
+                       n_engines=4, solver="dp", dvfs=True,
+                       forecaster="holt", max_batch=64, device="cuda")
+        gen = torch.Generator().manual_seed(29)
+        for w in fl.workers:
+            w.hetero.start_tokens(torch.randint(cfg.vocab_size, (64,),
+                                                generator=gen))
+        res = fl.run(fleet_trace(), max_drain_slices=FLEET_DRAIN_SLICES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        HeteroServeEngine._retier = retier0
+    launches = kernel_counts()
+    migrations = [ev["args"] for ev in obs.tracer().events()
+                  if ev["name"] == "engine.migration"]
+    obs.disable()
+    obs.reset()
+    require(migrations and all(
+        a["n_weights"] == n_weights and a["n_expert_weights"] == views
+        for a in migrations), f"moe: migrations {migrations[:2]}")
+    require(len(checked) == len(migrations),
+            f"moe: {len(checked)} retiers checked, {len(migrations)} "
+            f"migrations")
+    require(launches["quant_split"] == 3 * len(migrations),
+            f"moe: {launches['quant_split']} quant_split launches for "
+            f"{len(migrations)} migrations")
+    err = max(checked)
+    print(f"[moe] fleet of 4 engines, max_batch 64: {res.n_slices} slices "
+          f"({wall:.2f} s with the checks); {len(migrations)} migrations of "
+          f"{n_weights} matrices ({views} expert views), each in 3 "
+          f"quant_split launches, every segment == split_weight (max |diff| "
+          f"{err!r}); launches {launches}; peak "
+          f"{torch.cuda.max_memory_allocated()} bytes ({card})")
+    seen = []
+    for w in fl.workers:
+        for r in w.reports:
+            if dict(r.placement) not in seen:
+                seen.append(dict(r.placement))
+    eng = fl.workers[0].hetero
+    del fl, res
+    torch.cuda.empty_cache()
+    rows = {}
+    for shape, ws in groups.items():
+        rows["x".join(map(str, shape))] = dict(
+            matrices=len(ws), **quant_split_time_row(ws, eng, seen))
+    del eng, params, groups
+    torch.cuda.empty_cache()
+    out["moe_fleet"] = dict(migrations=len(migrations), launches=launches,
+                            max_abs_err=err, rows=rows)
 
 
 def phase_fleet(cfg, card: str, out: dict) -> None:
@@ -2089,8 +2218,9 @@ def phase_fleet(cfg, card: str, out: dict) -> None:
         for r in w.reports:
             if dict(r.placement) not in seen:
                 seen.append(dict(r.placement))
-    out["qs_time"] = quant_split_time_row(params, fl.workers[0].hetero,
-                                          seen)
+    out["qs_time"] = quant_split_time_row(
+        [layer["ffn"][w] for layer in params["stack"].values()
+         for w in ("w_up", "w_gate")], fl.workers[0].hetero, seen)
     del fl, run["fleet"], params
     torch.cuda.empty_cache()
     out["fleet"] = {k: run[k] for k in ("bring_up_ms", "lut_ms", "d2h",
@@ -3667,6 +3797,15 @@ def phase_recurrent(card: str, out: dict) -> None:
                 proc.communicate()
 
 
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     res = fn(*args)
@@ -3679,6 +3818,14 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] in child:  # phase 13's children
         sys.path.insert(0, str(ROOT / "src"))
         return recurrent_train_child(child[sys.argv[1]])
+    if sys.argv[1:] == ["--moe-fleet"]:
+        sys.path.insert(0, str(ROOT / "src"))
+        out: dict = {}
+        card = card_name()
+        print(card)
+        phase_moe_fleet(card, out)
+        print(json.dumps(out["moe_fleet"]))
+        return 0
     try:
         import torch
     except ImportError:
@@ -3697,11 +3844,7 @@ def main() -> int:
     t_start = time.perf_counter()
     out: dict = {}
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True)
-        card = smi.stdout.strip().splitlines()[0]
+        card = card_name()
         print(card)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}")
@@ -3729,6 +3872,7 @@ def main() -> int:
         timed("families smoke", phase_families_smoke, out)
         timed("families full width", phase_families_full, out)
         timed("fleet", phase_fleet, scfg, card, out)
+        timed("moe fleet", phase_moe_fleet, card, out)
         timed("training", phase_training, card, out)
         timed("sharded", phase_sharded, card, out)
         timed("recurrent scans", phase_recurrent, card, out)
@@ -3753,7 +3897,9 @@ def main() -> int:
         "internlm2_1_8b serving": out["qs_launches"],
         "recurrentgemma_2b serving": out["qs_launches_rg"],
         "fleet (internlm2_1_8b, decode)":
-            out["fleet"]["launches"]["quant_split"]}
+            out["fleet"]["launches"]["quant_split"],
+        "fleet (deepseek_v2_lite, decode)":
+            out["moe_fleet"]["launches"]["quant_split"]}
     by_path.update({k: {} for k in SCAN_KERNELS})
     for k in by_path:
         by_path[k]["train"] = out["train_launches"][k]
@@ -3819,6 +3965,7 @@ def main() -> int:
                       "src/repro/models/hetero_linear.py)",
              launches=sum(by_path["quant_split"].values()),
              launches_by_path=by_path["quant_split"],
+             at_moe_fleet=out["moe_fleet"],
              **dict(out["qs_time"], max_abs_err=max(
                  out["qs_err"], out["qs_err_rg"],
                  out["qs_time"]["max_abs_err"]))),

@@ -22,6 +22,7 @@ ARCH_IDS: List[str] = [
     "arctic_480b",
     "llama4_scout_17b_a16e",
     "seamless_m4t_medium",
+    "deepseek_v2_lite",
 ]
 
 # assignment ids (with dashes/dots) -> module names
@@ -36,6 +37,8 @@ ALIASES: Dict[str, str] = {
     "arctic-480b": "arctic_480b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "deepseek-v2-lite": "deepseek_v2_lite",
+    "DeepSeek-V2-Lite": "deepseek_v2_lite",
 }
 
 

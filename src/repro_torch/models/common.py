@@ -44,6 +44,36 @@ class ModelConfig:
     moe_capacity_factor: float = 1.25
     moe_dense_ff: int = 0        # arctic: dense residual MLP alongside MoE
     moe_dispatch_blocks: int = 1  # launcher sets = data-parallel size
+    # DeepSeekMoE (each default keeps the capacity-limited top-k layer):
+    moe_d_ff: int = 0            # expert width (0: d_ff)
+    moe_shared_ff: int = 0       # shared experts' SwiGLU width (0: none)
+    # "topk_softmax": softmax over the top-k logits (renormalised), a
+    # capacity limit; "softmax_topk": DeepSeekMoE, softmax over every
+    # expert in fp32, then greedy top-k of those weights, not
+    # renormalised, no token dropped (the two fields below need it)
+    moe_router: str = "topk_softmax"
+    # (first, count) of the routed experts this card holds; None: all.
+    # The router keeps its n_experts outputs; the layer computes the
+    # held experts' part of the result
+    moe_held: Optional[Tuple[int, int]] = None
+    first_dense_layers: int = 0  # leading blocks with a dense d_ff FFN
+
+    # MLA, multi-head latent attention (kv_lora_rank > 0 makes every
+    # attention block MLA): queries of qk_nope_dim + qk_rope_dim a head,
+    # keys and values from a kv_lora_rank latent, one roped key of
+    # qk_rope_dim shared by the heads, values of v_head_dim
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # YaRN RoPE scaling (yarn_factor 0: plain RoPE)
+    yarn_factor: float = 0.0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_original_len: int = 4096
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     # hybrid / ssm block pattern, repeated through depth:
     #   "attn" | "rglru" | "mlstm" | "slstm"
@@ -71,9 +101,26 @@ class ModelConfig:
     # serving: HH-PIM tier fractions (hp_bf16, hp_int8, lp_bf16, lp_int8)
     tier_fractions: Optional[Tuple[float, float, float, float]] = None
 
+    def __post_init__(self):
+        if self.moe_router not in ("topk_softmax", "softmax_topk"):
+            raise ValueError(f"moe_router {self.moe_router!r}")
+        if self.moe_router == "topk_softmax" and (
+                self.moe_held is not None or self.moe_shared_ff):
+            raise ValueError("moe_held and moe_shared_ff are DeepSeekMoE's: "
+                             "they need moe_router='softmax_topk'")
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def expert_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def held_experts(self) -> Tuple[int, int]:
+        """(first, count) of the routed experts held here."""
+        return self.moe_held or (0, self.n_experts)
 
     @property
     def is_encdec(self) -> bool:
@@ -131,18 +178,58 @@ def _rope_freqs(hd: int, theta: float = 10000.0,
                                          device=device) / hd))
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude correction, 0.1 mscale ln(factor) + 1 (1 at
+    factor <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_freqs(dim: int, cfg: ModelConfig, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    """YaRN's (dim/2,) frequencies, as DeepSeek-V2's rotary embedding
+    computes them: the plain frequencies where a pair turns more than
+    ``beta_fast`` times over the original context, those divided by the
+    factor where it turns fewer than ``beta_slow`` times, a linear ramp
+    between."""
+    def corr(rot: float) -> float:
+        return (dim * math.log(cfg.yarn_original_len / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+    lo = max(math.floor(corr(cfg.yarn_beta_fast)), 0)
+    hi = min(math.ceil(corr(cfg.yarn_beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    extra = _rope_freqs(dim, theta, device)
+    inter = 1.0 / (cfg.yarn_factor * theta ** (
+        torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
+def rope_freqs(dim: int, cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The (dim/2,) rotary frequencies of ``cfg``: YaRN's where it sets a
+    factor, else the plain ones."""
+    if cfg.yarn_factor:
+        return yarn_freqs(dim, cfg, device=device)
+    return _rope_freqs(dim, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               kind: str = "full") -> torch.Tensor:
+               kind: str = "full", freqs: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Rotary embedding. x: (B, S, H, hd); positions: (B, S).
 
     kind="full": rotate all hd dims; kind="2d": ChatGLM-style - rotate only
     the first half of head_dim (two-dimensional RoPE), pass the rest through.
+    ``freqs`` replaces the plain frequencies (YaRN's, :func:`rope_freqs`).
     """
     if kind == "none":
         return x
     hd = x.shape[-1]
     rot = hd if kind == "full" else hd // 2
-    freqs = _rope_freqs(rot, device=x.device)              # (rot/2,)
+    if freqs is None:
+        freqs = _rope_freqs(rot, device=x.device)          # (rot/2,)
     ang = positions[..., None].float() * freqs             # (B, S, rot/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]

@@ -36,9 +36,11 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.device import resolve as resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
 from repro_torch.models.common import (ModelConfig, batch_only,
@@ -64,7 +66,18 @@ def _is_moe(cfg: ModelConfig, kind: str) -> bool:
     return bool(cfg.n_experts) and kind == "attn"
 
 
-_INIT_MIX = {"attn": attn_lib.init_attention, "rglru": rec_lib.init_rglru,
+def _moe_ffn(p) -> bool:
+    """The block's FFN is an MoE layer (it has a router); a leading
+    dense block of an MoE model has a plain MLP."""
+    return "router" in p["ffn"]
+
+
+def _init_attention(gen: torch.Generator, cfg: ModelConfig):
+    return (mla_lib.init_mla(gen, cfg) if cfg.kv_lora_rank
+            else attn_lib.init_attention(gen, cfg))
+
+
+_INIT_MIX = {"attn": _init_attention, "rglru": rec_lib.init_rglru,
              "mlstm": rec_lib.init_mlstm, "slstm": rec_lib.init_slstm}
 _APPLY_MIX = {"rglru": rec_lib.rglru_block, "mlstm": rec_lib.mlstm_block,
               "slstm": rec_lib.slstm_block}
@@ -74,7 +87,9 @@ _DECODE_MIX = {"rglru": rec_lib.rglru_decode,
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               cross: bool = False) -> PyTree:
+               cross: bool = False, dense: bool = False) -> PyTree:
+    """One block's params; ``dense`` gives an MoE model's block a plain
+    d_ff MLP (its leading dense layers)."""
     if kind not in _INIT_MIX:
         raise ValueError(kind)
     dev = gen.device
@@ -88,7 +103,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
     if _has_ffn(cfg, kind):
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev)
-        p["ffn"] = (moe_lib.init_moe(gen, cfg) if _is_moe(cfg, kind)
+        p["ffn"] = (moe_lib.init_moe(gen, cfg)
+                    if _is_moe(cfg, kind) and not dense
                     else init_mlp_cfg(gen, cfg))
     return p
 
@@ -100,7 +116,9 @@ def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     0.0 for a block without an MoE FFN."""
     aux = 0.0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
+    if kind == "attn" and cfg.kv_lora_rank:
+        h = mla_lib.mla_attention(p["mix"], h, cfg, positions)
+    elif kind == "attn":
         h = (attn_lib.attention(p["mix"], h, cfg, positions) if causal
              else attn_lib.encoder_attention(p["mix"], h, cfg, positions))
     else:
@@ -115,7 +133,7 @@ def apply_block(p: PyTree, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             x + attn_lib.cross_attention(p["cross"], h, enc_out, cfg), cfg)
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if _is_moe(cfg, kind):
+        if _moe_ffn(p):
             aux = moe_lib.aux_load_balance_loss(p["ffn"], h, cfg)
             h = moe_lib.moe(p["ffn"], h, cfg)
         else:
@@ -130,10 +148,20 @@ def apply_block_decode(p: PyTree, x: torch.Tensor, cfg: ModelConfig,
     """One-token block application with recurrent/KV state (a KV cache is
     written in place, a recurrent state returned anew). On a mesh the
     residual stream is sharded by batch only (``batch_only``), its
-    partial sums reduced at each add."""
+    partial sums reduced at each add.
+
+    Traced, an MLA block's attention and an MoE FFN are the spans
+    ``attn.mla`` and ``moe.experts`` (the host's enqueue of their
+    work)."""
     x = batch_only(x)
+    _obs = obs.enabled()
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
+    if kind == "attn" and cfg.kv_lora_rank:
+        _t0 = obs.now_ns() if _obs else 0
+        h, new_state = mla_lib.mla_decode(p["mix"], h, cfg, state, pos)
+        if _obs:
+            obs.complete("attn.mla", _t0, cat="model")
+    elif kind == "attn":
         h, new_state = attn_lib.attention_decode(p["mix"], h, cfg, state,
                                                  pos)
     else:
@@ -145,14 +173,21 @@ def apply_block_decode(p: PyTree, x: torch.Tensor, cfg: ModelConfig,
             x + attn_lib.cross_attention_decode(p["cross"], h, enc_out, cfg))
     if "ffn" in p:
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        h = (moe_lib.moe(p["ffn"], h, cfg) if _is_moe(cfg, kind)
-             else mlp_cfg(p["ffn"], h, cfg))
+        if _moe_ffn(p):
+            _t0 = obs.now_ns() if _obs else 0
+            h = moe_lib.moe(p["ffn"], h, cfg)
+            if _obs:
+                obs.complete("moe.experts", _t0, cat="model")
+        else:
+            h = mlp_cfg(p["ffn"], h, cfg)
         x = batch_only(x + h)
     return x, new_state
 
 
 def init_block_state(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device) -> PyTree:
+    if kind == "attn" and cfg.kv_lora_rank:
+        return mla_lib.init_mla_cache(cfg, batch, max_len, dtype, device)
     if kind == "attn":
         return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device)
     if kind == "rglru":
@@ -174,6 +209,11 @@ def _stack_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...],
     """Returns (n_groups, period_kinds, tail_kinds)."""
     pattern = cfg.pattern_for_depth()
     period = cfg.block_pattern
+    if cfg.first_dense_layers and cfg.scan_layers:
+        # a scanned group holds blocks of one kind: leading dense blocks
+        # would be MoE there, and the serve engine would tier nothing
+        raise ValueError(f"{cfg.name}: leading dense layers need an "
+                         f"unscanned stack (scan_layers=False)")
     if not cfg.scan_layers:
         return 0, (), pattern
     n_groups = cfg.n_layers // len(period)
@@ -228,7 +268,8 @@ def _init_stack(gen: torch.Generator, cfg: ModelConfig,
              for i, kind in enumerate(period)}
             for _ in range(n_groups)])
     for i, kind in enumerate(tail):
-        out[f"tail_{i}"] = init_block(gen, cfg, kind, cross)
+        out[f"tail_{i}"] = init_block(gen, cfg, kind, cross,
+                                      dense=i < cfg.first_dense_layers)
     return out
 
 

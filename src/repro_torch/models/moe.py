@@ -8,6 +8,11 @@ over-capacity tokens are dropped (GShard-style) with the residual stream
 keeping them alive. The grouped expert products are plain batched
 matmuls (E x C x d x f), as the JAX package leaves them to XLA.
 
+A DeepSeekMoE layer (``moe_router="softmax_topk"``, with shared
+experts and a share of the experts held here where set) takes
+:func:`moe_held` instead: every held expert on every token, each token's
+part weighted by its gate, 0 off its top-k, so no token is dropped.
+
 On a mesh (DTensor activations) the dispatch and the gather back run
 on each rank's own blocks (``_blockwise``), and with
 moe_dispatch_blocks > 1 the slot buffers are laid out block dim over
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
 from repro_torch.models.common import ModelConfig, batch_only, dense_init
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.parallel.sharding import to_placements
@@ -56,16 +62,65 @@ def _blockwise(fn, *xs):
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig
              ) -> Dict[str, torch.Tensor]:
-    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    """The router over all ``n_experts``, the held experts' stacked
+    weights, and the shared experts and residual dense MLP where set."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.expert_ff
+    n = cfg.held_experts[1]
     p = {
         "router": dense_init(gen, (d, E)),
-        "w_gate": dense_init(gen, (E, d, f), in_axis=1),
-        "w_up": dense_init(gen, (E, d, f), in_axis=1),
-        "w_down": dense_init(gen, (E, f, d), in_axis=1),
+        "w_gate": dense_init(gen, (n, d, f), in_axis=1),
+        "w_up": dense_init(gen, (n, d, f), in_axis=1),
+        "w_down": dense_init(gen, (n, f, d), in_axis=1),
     }
     if cfg.moe_dense_ff:
         p["dense_mlp"] = init_mlp(gen, d, cfg.moe_dense_ff, cfg.mlp_act)
+    if cfg.moe_shared_ff:
+        p["shared"] = init_mlp(gen, d, cfg.moe_shared_ff, cfg.mlp_act)
     return p
+
+
+def route(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
+    """Gate weights and expert ids (T, k) of tokens x (T, d): the
+    router's product and softmax over all experts in fp32, then greedy
+    top-k of those weights, not renormalised (DeepSeek's ``MoEGate``)."""
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    return torch.topk(probs, cfg.experts_per_token, dim=-1)
+
+
+def moe_held(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """DeepSeekMoE, x: (B, S, d) -> (B, S, d): the held experts' part of
+    the routed result plus the shared experts. Every held expert runs on
+    every token; a token's output is its gate-weighted sum (in fp32) of
+    the held experts among its top-k, so no token is dropped and the
+    experts held elsewhere add nothing here.
+
+    Traced, the token-choices that reach each held expert are added up
+    on the device (``moe.expert_tokens``; no host sync)."""
+    B, S, d = x.shape
+    dt = x.dtype
+    x2 = x.reshape(B * S, d)
+    first, n = cfg.held_experts
+    weights, experts = route(p["router"], x2, cfg)
+    local = experts - first
+    held = (local >= 0) & (local < n)
+    slot = local.clamp(0, n - 1)
+    gates = torch.zeros((x2.shape[0], n), dtype=torch.float32,
+                        device=x.device)
+    gates.scatter_add_(1, slot, torch.where(held, weights, 0.0))
+    if obs.enabled():
+        obs.count_on_device("moe.expert_tokens", torch.zeros(
+            n, dtype=torch.long, device=x.device).scatter_add_(
+                0, slot.reshape(-1), held.reshape(-1).long()))
+    xe = x2.expand(n, *x2.shape)
+    h = (F.silu(torch.bmm(xe, p["w_gate"].to(dt)))
+         * torch.bmm(xe, p["w_up"].to(dt)))
+    o = torch.bmm(h, p["w_down"].to(dt))                       # (n, T, d)
+    y = (o.float() * gates.T[..., None]).sum(dim=0).to(dt)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x2, cfg.mlp_act)
+    if "dense_mlp" in p:
+        y = y + mlp(p["dense_mlp"], x2, cfg.mlp_act)
+    return y.reshape(B, S, d)
 
 
 def _block_capacity(t_block: int, cfg: ModelConfig) -> int:
@@ -90,6 +145,8 @@ def _slot_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
 
 def moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d)."""
+    if cfg.moe_router == "softmax_topk":
+        return moe_held(p, x, cfg)
     B, S, d = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.experts_per_token

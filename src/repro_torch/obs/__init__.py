@@ -32,6 +32,12 @@ Enable with :func:`enable` (optionally attaching a
 ``repro_torch.api.obs()``, export with :func:`export`. The state is
 process-global on purpose: one fleet run = one timeline.
 
+Counts that the device keeps (:func:`count_on_device`: a tensor of
+counts added up on the card, so the hot path never waits for it) are
+read to the host once, by :func:`read_device_counts`, when the trace
+stops (``disable``), and then stand in the metrics registry as counters
+labelled by index.
+
 Spans share a timeline with ``torch.profiler``'s host and device events
 through a clock anchor (:func:`clock_anchor`, taken by :func:`enable`
 and again on request; exported under ``otherData``): convert a span's
@@ -53,6 +59,7 @@ __all__ = [
     "enabled", "enable", "disable", "reset",
     "tracer", "metrics", "flight_recorder", "set_flight_recorder",
     "span", "instant", "complete", "counter", "gauge", "observe",
+    "count_on_device", "read_device_counts",
     "export", "now_ns", "summarize_events", "clock_anchor", "to_unix_ns",
     "Tracer", "MetricsRegistry", "FlightRecorder", "Histogram",
     "NULL_SPAN",
@@ -62,6 +69,7 @@ _enabled: bool = False
 _tracer = Tracer()
 _metrics = MetricsRegistry()
 _flight: Optional[FlightRecorder] = None
+_device_counts: Dict[str, Any] = {}
 
 
 # -- switches ----------------------------------------------------------------
@@ -88,7 +96,10 @@ def clock_anchor() -> Dict[str, int]:
 
 
 def disable() -> None:
+    """Turn tracing off; the device's counts are read first
+    (:func:`read_device_counts`)."""
     global _enabled
+    read_device_counts()
     _enabled = False
 
 
@@ -97,6 +108,7 @@ def reset() -> None:
     global _enabled, _flight
     _enabled = False
     _flight = None
+    _device_counts.clear()
     _tracer.clear()
     _metrics.clear()
 
@@ -167,6 +179,33 @@ def observe(name: str, value: float, *, buckets=TIME_US_BUCKETS,
     if not _enabled:
         return
     _metrics.observe(name, value, buckets=buckets, **labels)
+
+
+def count_on_device(name: str, values) -> None:
+    """Add ``values`` (an integer tensor) to the count ``name`` kept on
+    its device; no host sync."""
+    if not _enabled:
+        return
+    acc = _device_counts.get(name)
+    if acc is None:
+        _device_counts[name] = values.detach().clone()
+    else:
+        acc.add_(values)
+
+
+def read_device_counts() -> Dict[str, list]:
+    """Copy every count kept on a device to the host (one sync each),
+    add entry ``i`` of count ``name`` to the counter ``name`` labelled
+    ``index=i``, and start the counts again from 0. Returns what was
+    read."""
+    out = {}
+    for name, acc in list(_device_counts.items()):
+        vals = [int(v) for v in acc.cpu().tolist()]
+        for i, v in enumerate(vals):
+            _metrics.counter(name, v, index=i)
+        out[name] = vals
+    _device_counts.clear()
+    return out
 
 
 # -- export -------------------------------------------------------------------

@@ -12,10 +12,11 @@ isomorphic; only (t_i, e_i) change. See DESIGN.md SS.3.
 ``HeteroServeEngine`` actually re-tiers the model weights every time slice
 (real re-quantization + column splits, on the engine's device: on the
 card one ``quant_split`` launch per shape of FFN matrix, on the CPU its
-plain version, ``split_weight`` of each matrix) and decodes, so placement
-changes are functionally exercised, while energy and latency are
-accounted by the core model. On the card the int8 tiers run the
-``pim_mac`` CUDA kernel.
+plain version, ``split_weight`` of each matrix; an MoE model's held
+experts one matrix each, views of the stacked expert weights) and
+decodes, so placement changes are functionally exercised, while energy
+and latency are accounted by the core model. On the card the int8 tiers
+run the ``pim_mac`` CUDA kernel.
 """
 from __future__ import annotations
 
@@ -108,13 +109,31 @@ def default_t_slice_ms(arch: sp.PIMArch, model: sp.ModelSpec, *,
 
 
 def tpu_model_spec(cfg: ModelConfig, tokens_per_task: int) -> sp.ModelSpec:
-    """One *task* = decoding `tokens_per_task` tokens for one request."""
-    n_params = (cfg.n_layers
-                * (3 * cfg.d_model * cfg.d_ff
-                   if cfg.mlp_act in ("swiglu", "geglu")
-                   else 2 * cfg.d_model * cfg.d_ff))
-    n_params += cfg.n_layers * 4 * cfg.d_model * cfg.d_model
-    macs = n_params * tokens_per_task
+    """One *task* = decoding `tokens_per_task` tokens for one request.
+
+    A dense model's resident weights and a token's MACs are one count:
+    every layer's FFN and four d x d attention matrices. An MoE model
+    holds more than a token uses: resident are the attention matrices,
+    the leading dense layers' FFN and, per MoE layer, every held
+    expert, the shared experts and a residual dense MLP; a token's MACs
+    count of the held experts only its routed share, experts_per_token
+    x held / n_experts experts a layer."""
+    mats = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    if not cfg.n_experts:
+        n_params = cfg.n_layers * (mats * cfg.d_model * cfg.d_ff)
+        n_params += cfg.n_layers * 4 * cfg.d_model * cfg.d_model
+        macs = n_params * tokens_per_task
+        return sp.ModelSpec(f"{cfg.name}_serve", n_params, macs, 1.0)
+    d = cfg.d_model
+    n_dense = cfg.first_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    expert = mats * d * cfg.expert_ff
+    held = cfg.held_experts[1]
+    always = (cfg.n_layers * 4 * d * d + n_dense * mats * d * cfg.d_ff
+              + n_moe * mats * d * (cfg.moe_shared_ff + cfg.moe_dense_ff))
+    n_params = always + n_moe * held * expert
+    routed = n_moe * cfg.experts_per_token * held * expert // cfg.n_experts
+    macs = (always + routed) * tokens_per_task
     return sp.ModelSpec(f"{cfg.name}_serve", n_params, macs, 1.0)
 
 
@@ -123,6 +142,27 @@ class HeteroSliceResult:
     report: SliceReport
     tokens: np.ndarray           # decoded token ids (n_requests,)
     retiered: bool
+
+
+def _ffn_matrices(ffn):
+    """(path, matrix) of every FFN matrix a placement splits, ``w_up``
+    before ``w_gate``: a (d_in, d_out) leaf whole; a stacked (E, d_in,
+    d_out) expert leaf as each held expert's view ``[i]`` (no copy),
+    path ``(name, i)``; then the shared experts' and a residual dense
+    MLP's, under ``("shared", ...)`` and ``("dense_mlp", ...)``."""
+    for wname in ("w_up", "w_gate"):
+        if wname not in ffn:
+            continue
+        w = ffn[wname]
+        if w.ndim == 2:
+            yield (wname,), w
+        else:
+            for i in range(w.shape[0]):
+                yield (wname, i), w[i]
+    for sub in ("shared", "dense_mlp"):
+        if sub in ffn:
+            for path, w in _ffn_matrices(ffn[sub]):
+                yield (sub,) + path, w
 
 
 def _leaves(tree):
@@ -219,26 +259,23 @@ class HeteroServeEngine:
         keys, groups = [], {}
         # walks the stack's entries as the JAX package does: a "scan"
         # group holds its blocks one level down, so a scanned stack tiers
-        # no matrix there either (ROADMAP reference note (c))
+        # no matrix there either (ROADMAP reference note (c)). Each held
+        # expert's matrix is split as a dense one is, where the JAX
+        # package fails on the stacked leaf (note (e))
         stack = self.params["stack"]
+        n_expert = 0
         for lname, layer in stack.items():
             ffn = layer.get("ffn") if isinstance(layer, dict) else None
             if not ffn:
                 continue
-            for wname in ("w_up", "w_gate"):
-                if wname not in ffn:
-                    continue
-                w = ffn[wname]
-                if w.ndim != 2:
-                    # the JAX package hands MoE's (E, d_model, d_ff)
-                    # expert weights to split_weight, whose column-count
-                    # assert fails (ROADMAP reference note (e))
-                    raise AssertionError(
-                        f"{lname}/{wname}: expert weights {tuple(w.shape)}"
-                        f" cannot be split by columns")
-                keys.append(((lname, wname), tuple(w.shape)))
+            for path, w in _ffn_matrices(ffn):
+                keys.append(((lname,) + path, tuple(w.shape)))
                 groups.setdefault(tuple(w.shape), []).append(
                     w.float().contiguous())
+                n_expert += isinstance(path[-1], int)
+        # the old placement's tiers go before the new ones are written,
+        # so a migration never holds two sets
+        self._tiered = self._tiered_placement = None
         # the counts depend only on d_out
         segs = {}
         for shape, ws in groups.items():
@@ -260,19 +297,33 @@ class HeteroServeEngine:
             # a migration = weights actually re-quantized and re-split
             obs.complete("engine.migration", _t0, cat="engine",
                          args={"placement": dict(placement),
-                               "n_weights": len(tiers)})
+                               "n_weights": len(tiers),
+                               "n_expert_weights": n_expert})
             obs.counter("engine.migrations")
         return True
 
     def _matrix_table(self, shape: tuple, ws: List[torch.Tensor]
                       ) -> MatrixTable:
         """The pointer table of one shape's matrices, built once: it is
-        rebuilt only when a matrix is another tensor than before."""
+        rebuilt only when a matrix lies elsewhere than before (an
+        expert's view is a new tensor at every walk; the table holds the
+        old one, so its memory cannot have been reused)."""
         tab = self._tables.get(shape)
         if tab is None or len(tab.ws) != len(ws) or any(
-                a is not b for a, b in zip(tab.ws, ws)):
+                a.data_ptr() != b.data_ptr() for a, b in zip(tab.ws, ws)):
             tab = self._tables[shape] = matrix_table(ws)
         return tab
+
+    def start_tokens(self, tokens) -> None:
+        """The token each batch row decodes first (at position 0), in
+        place of token 0 for every row; before the first decode only."""
+        if self._pos:
+            raise RuntimeError("start_tokens comes before the first decode")
+        toks = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
+        if toks.shape != self._toks.shape:
+            raise ValueError(f"start_tokens takes {self.max_batch} tokens, "
+                             f"got shape {tuple(toks.shape)}")
+        self._toks = toks.clone()
 
     def apply_placement(self, placement: Dict[str, int]) -> bool:
         """Re-tier the model weights to ``placement`` (no-op if unchanged).

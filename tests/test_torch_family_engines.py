@@ -13,8 +13,10 @@ carried over by ``lm.params_from_numpy``):
   the same tiered matrices and tier columns, ``tiered_forward`` within
   BF16_ATOL, equal tokens;
 * the reference's faults, mirrored with the same exception types
-  (ROADMAP notes (e)-(g)): MoE expert weights reach ``split_weight`` in
-  ``_retier`` (AssertionError); the encoder-decoder engines decode without
+  (ROADMAP notes (f), (g)), and one the port departs from (note (e)):
+  the JAX engine hands MoE expert weights to ``split_weight`` in
+  ``_retier`` (AssertionError), the port tiers each expert's matrix;
+  the encoder-decoder engines decode without
   ``enc_out`` (AttributeError); xlstm's published ``d_ff=0`` tiers no
   matrix and ``tiered_forward`` then fails its assert (AssertionError);
 * ``launch/serve.py --arch`` for every registered architecture.
@@ -164,16 +166,37 @@ def test_hetero_engine_matches_jax(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ["arctic_480b", "llama4_scout_17b_a16e"])
 def test_moe_retier_fault_mirrors_jax(arch):
-    """Reference note (e): ``_retier`` hands the (E, d, f) expert weights
-    to ``split_weight``, whose column-count assert fails."""
+    """Reference note (e), a deliberate departure of the port: the JAX
+    engine's ``_retier`` hands the (E, d, f) expert weights to
+    ``split_weight``, whose column-count assert fails; the port splits
+    each expert's matrix (the ``[i]`` view of the stacked leaf) and a
+    residual dense MLP's as it splits a dense FFN's, and decodes."""
     cfg_j, cfg_t = _configs(arch)
     pj, pt = _params(arch)
     ej = jax_api.engine("gpu-pool", cfg_j, pj, max_batch=2)
     et = api.engine("gpu-pool", cfg_t, pt, max_batch=2, device="cpu")
     with pytest.raises(AssertionError):
         ej.run_slice(3)
-    with pytest.raises(AssertionError, match="expert weights"):
-        et.run_slice(3)
+    res = et.run_slice(3)
+    assert res.retiered and res.tokens.size == 2
+    E = cfg_t.n_experts
+    per_layer = 2 * E + (2 if cfg_t.moe_dense_ff else 0)
+    assert len(et._tiered) == cfg_t.n_layers * per_layer
+    from repro_torch.models.hetero_linear import split_weight
+    formats = {t: f for _, t, f in et._tier_plan}
+    for (lname, *path), segs in et._tiered.items():
+        w = pt["stack"][lname]["ffn"]
+        for k in path:
+            w = w[k]
+        assert w.ndim == 2
+        counts = {t: (0 if s.get("empty") else
+                      next(iter(s.values())).shape[-1])
+                  for t, s in segs.items()}
+        want = split_weight(w, counts, formats=formats)
+        for tier, seg in want.items():
+            for f, v in seg.items():
+                if f != "empty":
+                    assert torch.equal(segs[tier][f], v), (lname, path)
 
 
 def test_encdec_engines_fault_mirrors_jax():
@@ -220,11 +243,10 @@ def test_xlstm_without_ffn_fault_mirrors_jax():
         et.tiered_forward(_t(x))
 
 
-# the reference's failures on these engines (notes (e), (f)); every other
-# pair runs to its end
-CLI_FAULTS = {("arctic_480b", "hetero"): AssertionError,
-              ("llama4_scout_17b_a16e", "hetero"): AssertionError,
-              ("seamless_m4t_medium", "hetero"): AttributeError,
+# the reference's failures on these engines (note (f)); every other pair
+# runs to its end, the MoE models' hetero engines too (note (e): the
+# port tiers each expert)
+CLI_FAULTS = {("seamless_m4t_medium", "hetero"): AttributeError,
               ("seamless_m4t_medium", "batch"): AttributeError}
 
 

@@ -279,13 +279,38 @@ def test_cuda_pim_mac_at_the_recurrentgemma_width(M, N):
         assert torch.equal(out, pim_matmul_ref(x, w, sx, sw, od)), od
 
 
+# the gpu-pool-mixed placements' columns of a (2048, 1408) expert matrix
+# (all int8), and a split with every tier filled
+QS_EXPERT = [("legacy", (0, 704, 0, 704)), ("legacy", (0, 1000, 0, 408)),
+             ("legacy", (300, 400, 333, 375))]
+
+
+@pytest.mark.gpu
+def test_cuda_quant_split_of_expert_views_bitwise():
+    """1,664 (2048, 1408) matrices, each the ``[i]`` view of one stacked
+    (E, d, f) expert leaf as the serve engine hands them over (no copy):
+    one launch per split, every tier of every view bitwise to
+    split_weight of that view."""
+    from repro_torch.kernels.quant_split import ops as qops
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(29)
+    stack = torch.randn((1664, 2048, 1408), generator=g, device=dev)
+    ws = list(stack.unbind(0))
+    assert all(w.data_ptr() == stack[i].data_ptr() for i, w in
+               enumerate(ws))
+    assert qops.matrix_table(ws).vec
+    for plan, widths in QS_EXPERT:
+        _qs_check(ws, plan, widths)
+
+
 # -- the model families, CUDA against the CPU --------------------------------
 
 # fp32 logits of the smoke models, CUDA against the CPU: sums of at most a
 # few hundred terms taken in another order, through at most 16 blocks
 FAMILY_ATOL = 1e-4
 FAMILIES = ["arctic_480b", "llama4_scout_17b_a16e", "recurrentgemma_2b",
-            "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b"]
+            "xlstm_1_3b", "seamless_m4t_medium", "pixtral_12b",
+            "deepseek_v2_lite"]
 
 
 def _to(tree, dev):

@@ -146,9 +146,12 @@ def test_value_and_grad_gives_zeros_for_unused_leaves():
 
 
 def test_default_plans_match_jax():
+    """Over the architectures both packages list (the port's registry
+    also has deepseek_v2_lite, which the JAX package lacks)."""
+    from repro.configs import ARCH_IDS as JAX_ARCHS
     from repro.configs import get_config as jax_config
     from repro_torch.configs import ARCH_IDS, get_config
-    for arch in ARCH_IDS:
+    for arch in [a for a in ARCH_IDS if a in JAX_ARCHS]:
         cj, ct = jax_config(arch), get_config(arch)
         assert step.default_optimizer_kind(ct) == \
             jax_step.default_optimizer_kind(cj)
