@@ -1321,12 +1321,17 @@ def phase_serve_timing(cfg, out: dict) -> None:
 
     st = lm.init_decode_state(cfg, 16, 128, device="cuda")
     toks = torch.arange(16, device="cuda")
-    step_ms = cuda_ms(lambda: lm.decode_step(eng.params, cfg, st, toks, 5),
-                      reps=5)
-    print(f"[time] full-width decode_step B=16 (bf16, per-call weight "
-          f"cast): {step_ms!r} ms")
-    print_profile("full-width decode_step", profile_device(
-        lambda: lm.decode_step(eng.params, cfg, st, toks, 6)), ())
+    # the engine's compute copy (bf16, cast once) against the fp32
+    # masters, whose every product casts its weight again
+    for what, tree in (("fp32 masters, per-call weight cast", eng.params),
+                       ("the engine's bf16 compute copy",
+                        eng.compute_params)):
+        step_ms = cuda_ms(lambda: lm.decode_step(tree, cfg, st, toks, 5),
+                          reps=5)
+        print(f"[time] full-width decode_step B=16 ({what}): {step_ms!r} "
+              f"ms")
+        print_profile(f"full-width decode_step ({what})", profile_device(
+            lambda: lm.decode_step(tree, cfg, st, toks, 6)), ())
 
 
 # -- the other model families -----------------------------------------------
@@ -1838,14 +1843,20 @@ def fleet_decode_run(cfg, params, card: str) -> dict:
         obs.tracer().events())}
     migrations = [ev["args"]["n_weights"] for ev in obs.tracer().events()
                   if ev["name"] == "engine.migration"]
+    copies = [ev["args"] for ev in obs.tracer().events()
+              if ev["name"] == "engine.compute_copy"]
     obs.reset()
+    require(len(copies) == 1 and copies[0]["shared_by"] == 4,
+            f"fleet: compute copies {copies}, one for the 4 engines wanted")
+    print(f"[fleet] one compute copy for the 4 engines: {copies[0]}")
     print(f"[fleet] {res.n_slices} slices run ({len(trace)} of trace "
           f"{trace.name}, {trace.total} requests, drain capped at "
           f"{FLEET_DRAIN_SLICES}); per-slice wall ms p50 "
           f"{nearest_rank(slice_ms, 50)!r} p99 {nearest_rank(slice_ms, 99)!r}"
           f" max {max(slice_ms)!r} total {sum(slice_ms)!r} ({card})")
     for name in ("worker.step", "engine.migration", "engine.decode",
-                 "compiler.lut_build", "sched.slice", "fleet.slice"):
+                 "engine.compute_copy", "compiler.lut_build", "sched.slice",
+                 "fleet.slice"):
         r = spans.get(name)
         print(f"[fleet] span {name}: "
               + ("none" if r is None else

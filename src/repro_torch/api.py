@@ -178,12 +178,14 @@ def engine(sub: Union[str, Substrate] = "tpu-pool", cfg=None, params=None,
            *, t_slice_ms: Optional[float] = None, max_batch: int = 16,
            seed: int = 0, lut_points: Optional[int] = None,
            compiler: Optional[PlacementCompiler] = None,
-           device=DEFAULT_DEVICE, **over):
+           compute_params=None, device=DEFAULT_DEVICE, **over):
     """Construct a functional serve engine (weights actually re-tiered per
     placement) on a decode-capable pool substrate (tpu/gpu pools and the
     cxl tiers; the substrate's ``tier_plan`` sets the column split).
     ``params`` must live on ``device``, which runs the LUT builds, the
-    decode state and the tiering."""
+    decode state and the tiering. The decode reads ``compute_params``
+    (``serve.hetero.compute_copy`` of ``params``), made here when not
+    given."""
     from repro_torch.serve.hetero import HeteroServeEngine
     resolve_device(device)
     s = substrate(sub, **over)
@@ -195,7 +197,8 @@ def engine(sub: Union[str, Substrate] = "tpu-pool", cfg=None, params=None,
     return HeteroServeEngine(cfg, params, substrate=s,
                              t_slice_ms=t_slice_ms, max_batch=max_batch,
                              seed=seed, lut_points=lut_points,
-                             compiler=compiler, device=device)
+                             compiler=compiler,
+                             compute_params=compute_params, device=device)
 
 
 def _fleet_compiler(compiler: Optional[PlacementCompiler],
@@ -233,7 +236,9 @@ def fleet(sub: Union[str, Substrate] = "tpu-pool", cfg=None, *,
     also serves every worker's straggler-rescaling rebuilds).
     ``decode=True`` (decode-capable substrates, requires ``params`` on
     ``device``) attaches a real ``HeteroServeEngine`` per worker so
-    every placement change re-tiers actual weights and decodes tokens.
+    every placement change re-tiers actual weights and decodes tokens;
+    the engines decode from one compute copy of ``params``
+    (``serve.hetero.compute_copy``), made once here.
 
     ``dvfs`` turns the fleet's clock into a solved variable (DESIGN.md
     SS.10): ``True``/int/sequence builds one
@@ -300,15 +305,20 @@ def fleet(sub: Union[str, Substrate] = "tpu-pool", cfg=None, *,
                 lut_points=lut_points, compiler=pc, **kw)
             controllers[vk].prepare()
 
+    compute = None
+    if decode:
+        if params is None:
+            raise ValueError("decode=True requires model params")
+        from repro_torch.serve.hetero import compute_copy
+        compute = compute_copy(cfg, params, shared_by=n_engines)
     workers = []
     for i, v in enumerate(variants):
         hetero = None
         if decode:
-            if params is None:
-                raise ValueError("decode=True requires model params")
             eng = engine(v, cfg, params, t_slice_ms=t_slice_ns / 1e6,
                          max_batch=max_batch, lut_points=lut_points,
-                         compiler=pc, device=device)
+                         compiler=pc, compute_params=compute,
+                         device=device)
             sched = eng.sched
             sched._lut_cache[sched._slowdown_key()] = luts[v.variant_key()]
             hetero = eng

@@ -528,6 +528,41 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos
     return _decode_step_embed(params, cfg, state, x, pos)
 
 
+# the stack's leaves that a decode step reads only through a cast to the
+# compute dtype (``w.to(x.dtype)``) before a product or a bias add, in
+# every block kind: attention and cross attention, MLA, the MLPs and the
+# held experts with their shared and dense MLPs, the RG-LRU, mLSTM and
+# sLSTM. Norm scales, gate biases, the RG-LRU's decay and the MoE router
+# are read otherwise (in fp32, or cast after a gather) and are not here
+_DECODE_CAST = frozenset({
+    "wq", "wk", "wv", "wo", "bq", "bk", "bv", "w_kv_a", "w_kv_b",
+    "w_gate", "w_up", "w_down", "w_in_x", "w_in_g", "conv_w", "w_a", "w_x",
+    "w_out", "wi", "wf", "wz", "wo_gate"})
+
+
+def compute_copy(params, cfg: ModelConfig) -> PyTree:
+    """The tree :func:`decode_step` reads in place of ``params``, with
+    the same results bit for bit: each leaf that the step casts to
+    ``cfg.dtype`` before using it cast once here (the stack's
+    ``_DECODE_CAST`` leaves, ``lm_head``, and the embedding table when it
+    is the head too), so no step casts a weight again. Every other leaf
+    is the very tensor of ``params``: the norm scales, the biases read in
+    fp32, the router, an untied embedding table (a step gathers its rows,
+    then casts them), the encoder (read by :func:`encode` only). A leaf
+    already in ``cfg.dtype`` is returned as it is."""
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else v.to(cfg.dtype) if k in _DECODE_CAST else v)
+                for k, v in tree.items()}
+    out = dict(params)
+    out["stack"] = walk(params["stack"])
+    if cfg.tie_embeddings:
+        out["embed"] = params["embed"].to(cfg.dtype)
+    else:
+        out["lm_head"] = params["lm_head"].to(cfg.dtype)
+    return out
+
+
 def prefill(params, cfg: ModelConfig, tokens, *, max_len: int,
             prefix_embeds=None, enc_frames=None
             ) -> Tuple[torch.Tensor, PyTree]:

@@ -16,7 +16,10 @@ plain version, ``split_weight`` of each matrix; an MoE model's held
 experts one matrix each, views of the stacked expert weights) and
 decodes, so placement changes are functionally exercised, while energy
 and latency are accounted by the core model. On the card the int8 tiers
-run the ``pim_mac`` CUDA kernel.
+run the ``pim_mac`` CUDA kernel. The decode reads ``lm.compute_copy`` of
+the params, made once and shared by every engine on one params tree
+(``api.fleet`` makes one for all its engines); the tiering reads the
+fp32 masters.
 """
 from __future__ import annotations
 
@@ -173,6 +176,23 @@ def _leaves(tree):
         yield tree
 
 
+def compute_copy(cfg: ModelConfig, params, *, shared_by: int = 1):
+    """``lm.compute_copy(params, cfg)``, made once for the ``shared_by``
+    engines that decode from it. Traced, the span ``engine.compute_copy``
+    (args: the leaves cast, their bytes, ``shared_by``)."""
+    _obs = obs.enabled()
+    _t0 = obs.now_ns() if _obs else 0
+    copy = lm.compute_copy(params, cfg)
+    if _obs:
+        new = [c for c, m in zip(_leaves(copy), _leaves(params))
+               if c is not m]
+        obs.complete("engine.compute_copy", _t0, cat="engine",
+                     args={"n_leaves": len(new),
+                           "bytes": sum(t.nbytes for t in new),
+                           "shared_by": shared_by})
+    return copy
+
+
 class HeteroServeEngine:
     """Time-sliced decode engine with placement-driven weight tiering.
 
@@ -183,6 +203,8 @@ class HeteroServeEngine:
     ``device`` runs the scheduler's LUT builds, the decode state and the
     tiering; ``params`` must already live there. ``seed`` is accepted
     for the JAX package's signature and, as there, never read.
+    ``compute_params`` is :func:`compute_copy` of ``params``, which the
+    decode reads; an engine given none makes its own.
     """
 
     def __init__(self, cfg: ModelConfig, params, *,
@@ -191,7 +213,8 @@ class HeteroServeEngine:
                  tokens_per_task: int = 8, rho: float = 64.0,
                  max_batch: int = 16, peak_tasks: int = 10, seed: int = 0,
                  substrate=None, lut_points: Optional[int] = None,
-                 compiler=None, device=DEFAULT_DEVICE):
+                 compiler=None, compute_params=None,
+                 device=DEFAULT_DEVICE):
         from repro_torch.core.solvers import make_solver
         from repro_torch.core.substrate import make_substrate
         dev = resolve_device(device)
@@ -212,6 +235,8 @@ class HeteroServeEngine:
                              f"runs on {dev}; move them first")
         self.cfg = cfg
         self.params = params
+        self.compute_params = (compute_copy(cfg, params)
+                               if compute_params is None else compute_params)
         self.device = dev
         self.substrate = substrate
         self.arch = substrate.arch
@@ -341,7 +366,8 @@ class HeteroServeEngine:
     def _decode_tokens(self, n_requests: int) -> np.ndarray:
         """Decode one token per active request. As in the JAX package,
         the step runs on the untiered params (ROADMAP reference note
-        (b)); ``tiered_forward`` runs the tiered weights.
+        (b)), read from ``compute_params``, where they are already in the
+        compute dtype; ``tiered_forward`` runs the tiered weights.
 
         Traced, ``engine.decode`` holds two spans that tile it: the
         host enqueueing the step (``.dispatch``) and the host blocked on
@@ -350,7 +376,8 @@ class HeteroServeEngine:
         _obs = obs.enabled()
         _t0 = obs.now_ns() if _obs else 0
         logits, self._state = lm.decode_step(
-            self.params, self.cfg, self._state, self._toks, self._pos)
+            self.compute_params, self.cfg, self._state, self._toks,
+            self._pos)
         self._toks = torch.argmax(logits, dim=-1)
         _t1 = obs.now_ns() if _obs else 0
         toks = self._toks[:n_requests].cpu().numpy().astype(np.int32)

@@ -10,7 +10,8 @@ seeded random weights), against the benchmark's plain reference
   a skewed batch, and the four shares of a layer (the shared experts
   counted once) summing to the uncut layer;
 * the serve engines: ``HeteroServeEngine`` re-tiers every held expert's
-  matrix (bitwise ``split_weight`` of its view), ``DecodeEngine``'s
+  matrix (bitwise ``split_weight`` of its view) and decodes in bf16 from
+  its compute copy bitwise as from the fp32 masters, ``DecodeEngine``'s
   tokens follow the reference; the placement model spec of an MoE model
   and, bit for bit, of every dense one;
 * the program's spans and device-side counts (``attn.mla``,
@@ -273,6 +274,31 @@ def test_hetero_engine_tiers_every_held_expert():
                     assert torch.equal(segs[tier][f], v), (key, tier, f)
     with pytest.raises(RuntimeError, match="before the first decode"):
         eng.start_tokens([1, 2, 3, 4])
+
+
+def test_hetero_engine_decodes_from_its_compute_copy_bitwise(monkeypatch):
+    """The bf16 smoke model through ``HeteroServeEngine``: logits and
+    tokens across migrations (every held expert re-tiered from the fp32
+    masters) bitwise ``lm.decode_step`` on the masters. The copy casts
+    the held experts, the shared and dense MLPs and MLA's products; the
+    router (read in fp32 by ``route``), MLA's latent norm and the untied
+    embedding stay the masters' own tensors."""
+    from test_torch_serve import _perturbed, assert_engine_decodes_as_masters
+    cfg = _cfg(dtype=torch.bfloat16)
+    params = _perturbed(_params(cfg))
+    eng = assert_engine_decodes_as_masters(cfg, params, monkeypatch)
+    copy = eng.compute_params
+    assert copy["embed"] is params["embed"]
+    for lname, layer in params["stack"].items():
+        ours = copy["stack"][lname]
+        assert ours["mix"]["kv_norm"] is layer["mix"]["kv_norm"]
+        assert ours["mix"]["w_kv_b"].dtype == torch.bfloat16
+        ffn = layer["ffn"]
+        if "router" in ffn:
+            assert ours["ffn"]["router"] is ffn["router"]
+            for sub in ("w_gate", "w_up", "w_down"):
+                assert ours["ffn"][sub].dtype == torch.bfloat16
+                assert ours["ffn"]["shared"][sub].dtype == torch.bfloat16
 
 
 def test_decode_engine_serves_by_the_reference():

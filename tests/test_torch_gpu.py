@@ -438,6 +438,42 @@ def test_cuda_fleet_matches_cpu():
     assert pops.pim_matmul.launches > p0
 
 
+# -- the decode's weights ------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,over", [
+    ("internlm2_1_8b", dict(n_layers=2)),
+    ("deepseek_v2_lite", dict(n_layers=2, moe_held=(0, 16)))],
+    ids=["internlm2_1_8b", "deepseek_v2_lite"])
+def test_cuda_decode_step_casts_no_weight(arch, over):
+    """A full-width bf16 engine of two layers (DeepSeek's second an MoE
+    layer holding 16 experts), warmed up by two slices: one decode step
+    allocates, above what is resident, less than the bf16 size of the
+    model's largest matrix, so it casts no weight (it reads the compute
+    copy, made once with the engine)."""
+    import dataclasses
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.hetero import _leaves
+    dev = _card()
+    cfg = dataclasses.replace(get_config(arch), **over)
+    params = lm.init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    eng = api.engine("gpu-pool", cfg, params, max_batch=16, device=dev)
+    for _ in range(2):
+        eng.run_slice(16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.decode(16)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    largest = max(t.numel() for t in _leaves(params)) * cfg.dtype.itemsize
+    assert extra < largest, (arch, extra, largest)
+
+
 # -- training, CUDA against the CPU -------------------------------------------
 
 # fp32 smoke training (TF32 off): a loss is a mean of O(100)

@@ -14,7 +14,11 @@ same weights: JAX's init carried over by ``lm.params_from_numpy``):
   cxl-tier-3 and ``DecodeEngine``: equal slice reports and re-tiering,
   ``tiered_forward`` within tolerance, decoded tokens equal at every
   step (seeds with no top-2 logit margin within LOGIT_ATOL, where a
-  random-init near-tie could flip).
+  random-init near-tie could flip);
+* the decode's compute copy (``lm.compute_copy``) in bf16: every
+  family's decode from it bitwise the decode from the fp32 masters, the
+  engine's logits and tokens across migrations bitwise ``decode_step``
+  on the masters, and one copy shared by a fleet's engines.
 
 tests/test_torch_gpu.py holds the CUDA kernel against the plain version
 on the card.
@@ -38,8 +42,8 @@ from repro.models import hetero_linear as jax_hl  # noqa: E402
 from repro.models import lm as jax_lm  # noqa: E402
 from repro.quant import int8 as jax_q  # noqa: E402
 from repro.serve import engine as jax_engine  # noqa: E402
-from repro_torch import api  # noqa: E402
-from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch import api, obs  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_smoke_config  # noqa: E402
 from repro_torch.kernels.pim_mac import ops as pops  # noqa: E402
 from repro_torch.models import hetero_linear as hl  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -574,3 +578,220 @@ def test_hetero_engine_decode_entry_point():
                                 "hp_sram": 0, "lp_sram": 0}) is True
     assert eng.apply_placement({"hp_mram": 10, "lp_mram": 0,
                                 "hp_sram": 0, "lp_sram": 0}) is False
+
+
+# -- the decode's compute copy ------------------------------------------------
+
+
+def _bf16(arch, **over):
+    return dataclasses.replace(get_smoke_config(arch), dtype=torch.bfloat16,
+                               **over)
+
+
+def _paths(tree, path=()):
+    """(path, leaf) of every leaf of a tree, in its key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _is_cast(path, cfg) -> bool:
+    """A leaf that ``compute_copy`` casts: the stack's leaves the decode
+    casts before a product, and the head."""
+    return ((path[0] == "stack" and path[-1] in lm._DECODE_CAST)
+            or path == ("lm_head",)
+            or (path == ("embed",) and cfg.tie_embeddings))
+
+
+def assert_compute_copy_of(copy, params, cfg):
+    """``copy`` is ``lm.compute_copy(params, cfg)``: the same keys, each
+    cast leaf in ``cfg.dtype`` with the bits of ``.to(cfg.dtype)``, every
+    other leaf the very tensor of ``params``; ``params`` still fp32.
+    Returns the cast leaves' bytes."""
+    ours, masters = list(_paths(copy)), list(_paths(params))
+    assert [p for p, _ in ours] == [p for p, _ in masters]
+    n_bytes = 0
+    for (path, c), (_, m) in zip(ours, masters):
+        assert m.dtype == torch.float32, path
+        if _is_cast(path, cfg) and cfg.dtype != m.dtype:
+            assert c is not m and c.dtype == cfg.dtype, path
+            assert torch.equal(c, m.to(cfg.dtype)), path
+            n_bytes += c.nbytes
+        else:
+            assert c is m, path
+        if path[-1] in ("router", "kv_norm") or path[-1].startswith(
+                ("ln", "final_ln")):
+            assert c is m, path
+    assert copy["embed"] is params["embed"] or cfg.tie_embeddings
+    return n_bytes
+
+
+def _perturbed(params, seed=7):
+    """``params`` with every leaf moved by noise, so that a norm scale or
+    bias that ``init_lm`` sets to a round number (which bf16 holds
+    exactly) would read another value if cast."""
+    g = torch.Generator().manual_seed(seed)
+    for _, v in _paths(params):
+        v.add_(0.05 * torch.randn(v.shape, generator=g))
+    return params
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _family_extra(cfg, g, B):
+    extra = {}
+    if cfg.n_prefix_embeds:
+        extra["prefix_embeds"] = torch.randn(
+            (B, cfg.n_prefix_embeds, cfg.d_model), generator=g)
+    if cfg.is_encdec:
+        extra["enc_frames"] = torch.randn((B, 5, cfg.d_model), generator=g)
+    return extra
+
+
+@pytest.mark.parametrize("arch,over", [(a, ()) for a in ARCH_IDS] + [
+    ("internlm2_1_8b", (("tie_embeddings", True),)),
+    ("recurrentgemma_2b", (("n_layers", 6), ("scan_layers", True)))],
+    ids=ARCH_IDS + ["internlm2_1_8b-tied", "recurrentgemma_2b-scan"])
+def test_compute_copy_decodes_every_family_bitwise(arch, over):
+    """Every family's bf16 smoke model (a tied head, a scanned stack):
+    after a prefill on the masters, four decode steps from the compute
+    copy give the logits of the same steps on the fp32 masters, bit for
+    bit, and the copy casts only what the decode casts. In the fp32
+    smoke config the copy is the masters' own tensors."""
+    cfg = _bf16(arch, **dict(over))
+    params = _perturbed(lm.init_lm(torch.Generator().manual_seed(0), cfg))
+    copy = lm.compute_copy(params, cfg)
+    assert assert_compute_copy_of(copy, params, cfg) > 0
+    g = torch.Generator().manual_seed(1)
+    B = 3
+    toks = torch.randint(0, cfg.vocab_size, (B, 4), generator=g)
+    _, st = lm.prefill(params, cfg, toks, max_len=16,
+                       **_family_extra(cfg, g, B))
+    st_copy = _clone(st)
+    n = toks.shape[1] + cfg.n_prefix_embeds
+    t_m = t_c = toks[:, -1]
+    for i, pos in enumerate((n, n + 1, n + 2, torch.tensor([n + 3, 2, 5]))):
+        lm_m, st = lm.decode_step(params, cfg, st, t_m, pos)
+        lm_c, st_copy = lm.decode_step(copy, cfg, st_copy, t_c, pos)
+        assert torch.equal(lm_c, lm_m), (arch, i)
+        t_m, t_c = lm_m.argmax(-1), lm_c.argmax(-1)
+    fp32 = get_smoke_config(arch)
+    same = lm.compute_copy(params, dataclasses.replace(fp32, **dict(over)))
+    assert all(c is m for (_, c), (_, m) in zip(_paths(same),
+                                                 _paths(params)))
+
+
+def engine_against_masters(cfg, params, monkeypatch, loads, starts):
+    """A gpu-pool engine served ``loads`` slices from first tokens
+    ``starts``, each decode's logits kept, against ``lm.decode_step`` on
+    the fp32 masters from the same start. Returns the engine, its slice
+    results and, step by step, (engine logits, masters' logits, masters'
+    tokens)."""
+    kept = []
+    step0 = lm.decode_step
+
+    def step(*a, **k):
+        logits, st = step0(*a, **k)
+        kept.append(logits)
+        return logits, st
+    eng = api.engine("gpu-pool", cfg, params, max_batch=len(starts),
+                     device="cpu")
+    eng.start_tokens(starts)
+    monkeypatch.setattr(lm, "decode_step", step)
+    res = [eng.run_slice(n) for n in loads]
+    monkeypatch.undo()
+    st = lm.init_decode_state(cfg, len(starts), 128, device="cpu")
+    toks = torch.tensor(starts)
+    steps = []
+    for pos, ours in enumerate(kept):
+        logits, st = lm.decode_step(params, cfg, st, toks, pos)
+        toks = logits.argmax(-1)
+        steps.append((ours, logits, toks))
+    return eng, res, steps
+
+
+def assert_engine_decodes_as_masters(cfg, params, monkeypatch):
+    """Six slices with migrations between the decodes: every step's
+    logits and tokens bitwise the masters'; the engine's ``params`` the
+    fp32 masters, its ``compute_params`` their compute copy."""
+    starts = [5, 17, 3, 42]
+    eng, res, steps = engine_against_masters(cfg, params, monkeypatch,
+                                             (2, 4, 1, 4, 3, 4), starts)
+    assert len(steps) == len(res) == 6
+    assert sum(r.retiered for r in res[1:]) >= 3
+    for r, (ours, want, toks) in zip(res, steps):
+        assert ours.dtype == cfg.dtype
+        assert torch.equal(ours, want)
+        n = len(r.tokens)
+        assert r.tokens.tolist() == toks[:n].tolist()
+    assert eng.params is params
+    assert assert_compute_copy_of(eng.compute_params, params, cfg) > 0
+    return eng
+
+
+def test_engine_decodes_from_its_compute_copy_bitwise(monkeypatch):
+    """The dense bf16 smoke model through ``HeteroServeEngine``: its
+    logits and tokens across migrations bitwise ``lm.decode_step`` on
+    the fp32 masters, which the migrations keep reading."""
+    cfg = _bf16("internlm2_1_8b")
+    params = _perturbed(lm.init_lm(torch.Generator().manual_seed(0), cfg))
+    eng = assert_engine_decodes_as_masters(cfg, params, monkeypatch)
+    placement = eng._tiered_placement
+    want = _tiers_by_split_weight(eng, placement)
+    for key, segs in want.items():
+        for tier, seg in segs.items():
+            for f, v in seg.items():
+                if f != "empty":
+                    assert torch.equal(eng._tiered[key][tier][f], v)
+
+
+def test_fleet_engines_share_one_compute_copy():
+    """``api.fleet(decode=True)`` makes one compute copy for its four
+    engines, in one ``engine.compute_copy`` span with the cast leaves'
+    count and bytes; an engine built alone makes its own."""
+    cfg = _bf16("internlm2_1_8b")
+    params = lm.init_lm(torch.Generator().manual_seed(0), cfg)
+    obs.reset()
+    obs.enable()
+    try:
+        fl = api.fleet("gpu-pool-mixed", cfg, params=params, decode=True,
+                       n_engines=4, solver="dp", dvfs=True, max_batch=4,
+                       device="cpu")
+        fleet_spans = [e for e in obs.tracer().events()
+                       if e["name"] == "engine.compute_copy"]
+        obs.reset()
+        obs.enable()
+        alone = api.engine("gpu-pool", cfg, params, max_batch=4,
+                           device="cpu")
+        alone_spans = [e for e in obs.tracer().events()
+                       if e["name"] == "engine.compute_copy"]
+    finally:
+        obs.reset()
+    engines = [w.hetero for w in fl.workers]
+    assert len(engines) == 4
+    copy = engines[0].compute_params
+    n_bytes = assert_compute_copy_of(copy, params, cfg)
+    n_cast = sum(c is not m for (_, c), (_, m) in zip(_paths(copy),
+                                                       _paths(params)))
+    assert n_cast == 1 + 7 * cfg.n_layers
+    for path, c in _paths(copy):
+        ptrs = {_leaf(e.compute_params, path).data_ptr() for e in engines}
+        assert ptrs == {c.data_ptr()}, path
+    assert [e["args"] for e in fleet_spans] == [
+        {"n_leaves": n_cast, "bytes": n_bytes, "shared_by": 4}]
+    assert [e["args"] for e in alone_spans] == [
+        {"n_leaves": n_cast, "bytes": n_bytes, "shared_by": 1}]
+    assert alone.compute_params["lm_head"] is not copy["lm_head"]
+    assert all(e.params is params for e in engines + [alone])
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
