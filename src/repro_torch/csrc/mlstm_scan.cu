@@ -10,7 +10,7 @@
 // Pallas kernel: XLA runs the scan there). Plain version:
 // repro_torch/kernels/mlstm_scan/ref.py::mlstm_scan_ref; the chunkwise
 // algorithm below is modelled step for step, for the CPU tests, by
-// repro_torch/kernels/mlstm_scan/chunked.py.
+// tests/torch_mlstm_chunked.py.
 //
 // Inputs: q, k, v (B, S, H, hd) fp32 (k already scaled by 1/sqrt(hd)),
 // i, f (B, S, H) fp32 (f the log forget gate), all contiguous; output
@@ -810,7 +810,7 @@ extern "C" int mlstm_scan_launch(const void* q, const void* k, const void* v,
 // mlstm_scan_bwd: the recurrence's backward. Plain version:
 // repro_torch/kernels/mlstm_scan/ref.py::mlstm_scan_bwd_ref (a loop back in
 // time); the chunkwise algorithm below is modelled step for step by
-// repro_torch/kernels/mlstm_scan/chunked.py::mlstm_chunked_bwd. Stands in
+// tests/torch_mlstm_chunked.py::mlstm_chunked_bwd. Stands in
 // for jax.grad of the JAX package's lax.scan of _mlstm_step.
 //
 // Inputs: q, k, v, i, f as the forward's, h its output and dh h's gradient

@@ -11,7 +11,7 @@
 // weight matrix, so every unit is its own recurrence. Plain version:
 // repro_torch/kernels/slstm_scan/ref.py::slstm_scan_ref; the chunked
 // scan below is modelled step for step, for the CPU tests, by
-// repro_torch/kernels/slstm_scan/chunked.py.
+// tests/torch_slstm_chunked.py.
 //
 // Inputs: z, i, f, o (B, S, d) fp32 gate pre-activations (f with its
 // bias), contiguous; output h (B, S, d) fp32; scratch from the wrapper.
@@ -273,7 +273,7 @@ extern "C" int slstm_scan_launch(const void* z, const void* i, const void* f,
 // slstm_scan_bwd: the recurrence's backward. Plain version:
 // repro_torch/kernels/slstm_scan/ref.py::slstm_scan_bwd_ref (a loop back in
 // time, one step of it ref.py::slstm_bwd_step); the chunked scan below is
-// modelled step for step by repro_torch/kernels/slstm_scan/chunked.py::
+// modelled step for step by tests/torch_slstm_chunked.py::
 // slstm_chunked_bwd. Stands in for jax.grad of the JAX package's lax.scan
 // of _slstm_step.
 //

@@ -11,8 +11,8 @@ can check it: chunks of 32 steps, one inter block per 32 columns of C
 (8 warps, each owning a slice of C's rows), and the inter kernel's
 dynamic shared memory (228,864 bytes at hd = 512). The kernel is
 chunkwise (three passes: the stabilizer, each chunk's gated Q K^T, then
-the state chunk after chunk); :mod:`.chunked` models it in PyTorch for
-the CPU tests.
+the state chunk after chunk); ``tests/torch_mlstm_chunked.py`` models
+it in PyTorch for the CPU tests.
 
 :func:`mlstm_scan_bwd` wraps the backward kernels of the same file (a
 chunkwise backward: the forward's gates pass; n before every chunk, from
@@ -22,7 +22,7 @@ chunks for the inter terms of dq, dk and dv, their products on the
 tensor cores; and the gates' gradients from per-step sums, serially);
 its launch count is ``mlstm_scan_bwd.launches``. The walks take the
 inter kernel's ``xw`` (columns of their state a warp) from
-:func:`mlstm_plan`. :mod:`.chunked` models it too.
+:func:`mlstm_plan`. ``tests/torch_mlstm_chunked.py`` models it too.
 
 Each is a ``torch.library`` custom op (``repro_torch::mlstm_scan``,
 ``repro_torch::mlstm_scan_bwd``) with a fake (meta) version, a DTensor

@@ -8,8 +8,8 @@ tensors run the plain version (:mod:`.ref`), and a CUDA tensor never
 falls back. Its launch count is ``slstm_scan.launches`` (one per call).
 The kernel is a chunked scan over time in chunks of ``CHUNK`` steps (a
 local pass per chunk, a serial combine over the chunks, a rerun of each
-chunk from its incoming state); :mod:`.chunked` models it in PyTorch
-for the CPU tests.
+chunk from its incoming state); ``tests/torch_slstm_chunked.py``
+models it in PyTorch for the CPU tests.
 
 :func:`slstm_scan_bwd` wraps the backward kernels of the same file:
 a states pass and the forward's combine give the incoming state of

@@ -1,7 +1,7 @@
 """The chunked algorithms of the ``mlstm_scan`` and ``slstm_scan``
-kernels, modelled step for step in PyTorch (``repro_torch/kernels/
-{mlstm,slstm}_scan/chunked.py``), against the plain loops that define
-the ops (``ref.py``), on the CPU. No card can check the decomposition
+kernels, modelled step for step in PyTorch (``tests/torch_{mlstm,slstm}
+_chunked.py``), against the plain loops that define the ops
+(``ref.py``), on the CPU. No card can check the decomposition
 here; these tests do, at several chunk lengths and at lengths shorter
 than a chunk, equal to one, one step either side of one, not a multiple
 of one, and long.
@@ -26,19 +26,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.mlstm_scan.chunked import (  # noqa: E402
-    chunk_update, mlstm_chunk_gates, mlstm_chunked, mlstm_chunked_bwd,
-    walk_product)
 from repro_torch.kernels.mlstm_scan.ops import mlstm_plan  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
     mlstm_scan_bwd_exact, mlstm_scan_bwd_ref, mlstm_scan_exact,
     mlstm_scan_ref, mlstm_step)
-from repro_torch.kernels.slstm_scan.chunked import (  # noqa: E402
-    slstm_chunked, slstm_chunked_bwd, span_map)
 from repro_torch.kernels.slstm_scan.ops import (  # noqa: E402
     BWD_CHUNK as SLSTM_BWD_CHUNK, BWD_SPAN as SLSTM_BWD_SPAN)
 from repro_torch.kernels.slstm_scan.ref import (  # noqa: E402
     slstm_bwd_step, slstm_scan_bwd_ref, slstm_scan_ref, slstm_step)
+from torch_mlstm_chunked import (  # noqa: E402
+    chunk_update, mlstm_chunk_gates, mlstm_chunked, mlstm_chunked_bwd,
+    walk_product)
+from torch_slstm_chunked import (  # noqa: E402
+    slstm_chunked, slstm_chunked_bwd, span_map)
 
 CHUNKS = [16, 32, 64]
 LENGTHS = ["1", "L-1", "L", "L+1", "200", "1024"]

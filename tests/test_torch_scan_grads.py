@@ -33,7 +33,6 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from repro.models import recurrent as jax_rec  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as mops  # noqa: E402
-from repro_torch.kernels.mlstm_scan.chunked import mlstm_chunked  # noqa: E402
 from repro_torch.kernels.mlstm_scan.ref import (  # noqa: E402
     mlstm_scan_bwd_ref, mlstm_scan_ref)
 from repro_torch.kernels.slstm_scan import ops as sops  # noqa: E402
@@ -46,6 +45,7 @@ from repro_torch.tree import leaves as tree_leaves  # noqa: E402
 from test_torch_families import _configs, _params, _t  # noqa: E402
 from test_torch_scans import (GRAD_RTOL, LENGTHS, _OpCount,  # noqa: E402
                               _mlstm_inputs, _rand)
+from torch_mlstm_chunked import mlstm_chunked  # noqa: E402
 
 # the plain backward against autograd through the plain loop, relative to
 # each gradient's largest entry: the same fp32 terms, a few of them

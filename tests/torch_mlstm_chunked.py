@@ -4,8 +4,10 @@ The kernel (``repro_torch/csrc/mlstm_scan.cu``) does not walk the
 sequence one step at a time: it splits it into chunks of ``chunk``
 steps and, per chunk, does a few small matrix products. This module
 runs the same decomposition step for step in PyTorch, so that the CPU
-tests can hold it to the loop of :mod:`.ref` (which stays the op's
-definition). No path of the port calls it.
+tests can hold it to the loop of
+:mod:`repro_torch.kernels.mlstm_scan.ref` (which stays the op's
+definition). No path of the port calls it, so it lives with the tests
+(``test_torch_chunked_scans.py``, ``test_torch_scan_grads.py``).
 
 Per (batch row, head), with m_{-1} = -inf, C = 0, n = 0:
 
@@ -57,8 +59,8 @@ gates through log D. Given m:
   The walks' two products run on the tensor cores in 8-deep steps, each
   step's partial product formed apart and added to a running sum
   (:func:`walk_product`, :func:`chunk_update`): M y_t over each warp's
-  ``xw`` columns of M (``ops.mlstm_plan``), the warps' sums added in
-  order; the chunk's update over its four steps, added once to the
+  ``xw`` columns of M (``mlstm_scan.ops.mlstm_plan``), the warps' sums
+  added in order; the chunk's update over its four steps, added once to the
   decayed state, M <- s_e M + U;
 * the gates, per step, without any hd^2 product: with G = dP ⊙ P the
   gradient of log D, its row sum R_t = dh_t . h_t + dd_t d_t = (dh_t .

@@ -15,15 +15,17 @@ cuts time into chunks of ``chunk`` steps and runs, per (row, unit):
 3. rerun: each chunk again, from its incoming state, writing h.
 
 This module runs the same three passes step for step, so that the CPU
-tests can hold them to the loop of :mod:`.ref` (which stays the op's
-definition). No path of the port calls it. Phase 3 is the loop's own
-step (:func:`.ref.slstm_step`); only the incoming states differ from the
-loop's, by rounding. From a chunk's first step on n >= 1, so the clamp
-max(n, 1) does not bind, and a boundary m off by rounding rescales c
-and n alike.
+tests can hold them to the loop of
+:mod:`repro_torch.kernels.slstm_scan.ref` (which stays the op's
+definition). No path of the port calls it, so it lives with the tests
+(``test_torch_chunked_scans.py``). Phase 3 is the loop's own step
+(:func:`~repro_torch.kernels.slstm_scan.ref.slstm_step`); only the
+incoming states differ from the loop's, by rounding. From a chunk's
+first step on n >= 1, so the clamp max(n, 1) does not bind, and a
+boundary m off by rounding rescales c and n alike.
 
 :func:`slstm_chunked_bwd` models the backward kernels. Given the states,
-a step of the backward (:func:`.ref.slstm_bwd_step`) is linear in the
+a step of the backward (:func:`slstm_bwd_step`) is linear in the
 gradients it carries back, x = (dc, dn, dm): it sends the carry of its
 new state to its incoming state's by [[fg, 0, 0], [0, fg, 0], [P, Q,
 sel]] plus a term in dh (:func:`step_matrix`). Products of such
@@ -133,7 +135,7 @@ def _chunk_back(xs, dh, c0, c1, states, carry, grads=None):
 
 def step_matrix(prev, state, inp):
     """(fg, P, Q, sel) of one step: the matrix [[fg, 0, 0], [0, fg, 0],
-    [P, Q, sel]] by which :func:`.ref.slstm_bwd_step` sends the carried
+    [P, Q, sel]] by which :func:`slstm_bwd_step` sends the carried
     gradients (dc, dn, dm) of ``state`` to those of ``prev`` (its dh
     term aside): P = (1 - sel) fg c_{t-1} - sel ig tanh z, Q = (1 - sel)
     fg n_{t-1} - sel ig."""
