@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card (an
 H100; the kernels are built for sm_90a). Phases:
 
-  1. print the card's name and power limit; build the seven CUDA sources
+  1. print the card's name and power limit; build the eight CUDA sources
      from ``src/repro_torch/csrc`` (nvcc, one process per source, in
      parallel), printing ``-Xptxas -v`` and the build times;
   2. hold the placement kernels bitwise (``torch.equal``) against their
@@ -58,7 +58,17 @@ H100; the kernels are built for sm_90a). Phases:
      smallest M ``torch._int_mm`` takes) beside ``torch._int_mm`` plus
      the same epilogue, timed the same two ways; split one
      ``run_slice`` into scheduler step, retier, decode and
-     ``tiered_forward``, and time one full-width ``decode_step``;
+     ``tiered_forward``, and time one full-width ``decode_step``; hold
+     ``decode_attn`` to its plain version (caches bitwise, each output
+     element within one bf16 step of itself and a quarter of the
+     largest |output|, a limit both bf16-sum controls fail) at the dense
+     cells' shape (B=16, 16 query heads over 8 KV heads of 128, a ring
+     of 128, past its wrap), at recurrentgemma_2b's serving ring (B=16,
+     10 query heads over 1 KV head of 256, a ring of 128, before and
+     past the wrap) and with per-row positions at ``DecodeEngine``'s
+     rings (B=4, a ring of 64) of both models, and time it at the
+     cells' shape L2-cold (24 rings cycled, as a step's 24 layers) by
+     CUDA events and torch.profiler beside the byte bound;
   7. the other model families (every architecture of the registry now
      runs in the port): each family's smoke model in fp32 (TF32 off),
      params from ``init_lm`` on a CPU generator copied to the card,
@@ -95,7 +105,9 @@ H100; the kernels are built for sm_90a). Phases:
      stage-tensor copies to the host split out, each slice ending in a
      synchronize (p50/p99), and the spans of ``worker.step``,
      ``engine.migration``, ``engine.decode`` and ``compiler.lut_build``;
-     every migration tiers 48 matrices; each worker's ``SliceReport``
+     every migration tiers 48 matrices; every decode step launches
+     ``decode_attn`` once a layer (24), counted as fused when traced;
+     each worker's ``SliceReport``
      sequence and the ``FleetSummary`` equal the same fleet with
      ``decode=False`` on the card and on the CPU, and ``pc.stats()``
      equals the CPU's but for the device; each worker's int8 tiers run
@@ -115,7 +127,8 @@ H100; the kernels are built for sm_90a). Phases:
      migration re-tiers 886 matrices (832 expert views) in 3
      ``quant_split`` launches, each segment held to ``split_weight``
      bitwise right after it, and each shape's launch timed over the
-     fleet's placements (alone: ``python3 chip_smoke.py --moe-fleet``);
+     fleet's placements, and no ``decode_attn`` launch (MLA) (alone:
+     ``python3 chip_smoke.py --moe-fleet``);
   11. training (slice D) with every launch count set to 0 just before
      it: loss and gradients of every family that trains (dense, MoE,
      RG-LRU, xLSTM, VLM with prefix embeddings, encoder-decoder with
@@ -144,7 +157,8 @@ H100; the kernels are built for sm_90a). Phases:
      it: a world of one on ``nccl`` and the (1, 1) test mesh; full-width
      internlm2_1_8b (``scan_layers=False``) decodes 8 steps through
      DTensor params and a DTensor decode state, held bitwise to the plain
-     ``decode_step`` (every placement replicates) and timed both ways by
+     ``decode_step`` on the plain attention path (every placement
+     replicates; a DTensor cache takes that path) and timed both ways by
      CUDA events (the gap is DTensor's dispatch cost); one smoke train
      step with 2 microbatches on the mesh: the loss equal to the plain
      step's, each param leaf within 1e-6 of its largest entry.
@@ -198,7 +212,7 @@ H100; the kernels are built for sm_90a). Phases:
   14. print each phase's seconds, the ``{"kernels": [...]}`` line (each
      kernel's CUDA-event ``ms`` and profiler ``device_ms``, its launches
      in total and per driven path, ``train``, ``sharded`` and phase 13's
-     among them, for all ten kernels; ``pim_mac``
+     among them, for all eleven kernels; ``pim_mac``
      also its comparison with the library call at M=32 under
      ``at_library_shape`` and its recurrentgemma row under
      ``at_recurrentgemma_shape``) and, last,
@@ -506,6 +520,7 @@ def phase_parity(cases: dict, out: dict) -> None:
     import torch
 
     from repro_torch.core.multipool import combine_rows_torch
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.knapsack_dp.ops import dp_stages, knapsack_dp
     from repro_torch.kernels.knapsack_dp.ref import (dp_stages_ref,
                                                      gather_rows)
@@ -630,6 +645,7 @@ def phase_main_path(cfg, out: dict) -> None:
 
     from repro_torch import api
     from repro_torch.core.placement import build_lut
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.knapsack_dp.ops import dp_stages
     from repro_torch.kernels.lut_pipeline.ops import minplus_combine
 
@@ -738,6 +754,7 @@ def phase_timing(grid: dict, cxl: dict, syn: dict, out: dict) -> None:
     from repro_torch import obs
     from repro_torch.core.multipool import combine_rows_torch
     from repro_torch.core.placement import build_lut_grid
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.knapsack_dp.ops import dp_stages, knapsack_dp
     from repro_torch.kernels.knapsack_dp.ref import (dp_stages_ref,
                                                      gather_rows)
@@ -999,11 +1016,13 @@ def serve_slices(cfg, params, x, label: str) -> dict:
 
     from repro_torch import api
     from repro_torch.core import workloads
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.pim_mac.ops import pim_matmul
     from repro_torch.kernels.quant_split.ops import quant_split
 
     pim_matmul.launches = 0
     quant_split.launches = 0
+    decode_attn.launches = 0
     t0 = time.perf_counter()
     eng = api.engine("gpu-pool", cfg, params, max_batch=16, device="cuda")
     loads = workloads.SCENARIOS["case6_random"][:SERVE_SLICES]
@@ -1045,18 +1064,38 @@ def serve_slices(cfg, params, x, label: str) -> dict:
     require(quant_split.launches == len(placements),
             f"{label}: {quant_split.launches} quant_split launches for "
             f"{len(placements)} migrations")
+    da = require_decode_attn_steps(cfg, label + " serving")
     return dict(engine=eng, launches=launches, placements=placements,
+                da_launches=da,
                 qs_launches=quant_split.launches, qs_err=split_err,
                 int8_widths=sorted({w for k, v in widths.items()
                                     if k.endswith("int8") for w in v}))
 
 
-def decode_engine_run(cfg, params, label: str) -> None:
-    """``DecodeEngine``: 6 requests of 8 tokens at batch 4."""
+def require_decode_attn_steps(cfg, label: str) -> int:
+    """``decode_attn.launches`` since it was set to 0: at least one step
+    of ``cfg``'s bf16 decode, one launch for each attention layer of
+    each (its rings all of at most 256 slots)."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+
+    n = sum(kind == "attn" for kind in cfg.pattern_for_depth())
+    got = decode_attn.launches
+    print(f"[serve] {label}: {got} decode_attn launches, {got / n!r} "
+          f"steps of {n} attention layers")
+    require(got > 0 and got % n == 0,
+            f"{label}: {got} decode_attn launches, not whole steps of {n}")
+    return got
+
+
+def decode_engine_run(cfg, params, label: str) -> int:
+    """``DecodeEngine``: 6 requests of 8 tokens at batch 4 (per-row
+    positions). Returns its ``decode_attn`` launches."""
     import torch
 
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.serve.engine import DecodeEngine, Request
 
+    decode_attn.launches = 0
     t0 = time.perf_counter()
     deng = DecodeEngine(cfg, params, max_batch=4, max_len=64, device="cuda")
     for rid in range(6):
@@ -1072,6 +1111,7 @@ def decode_engine_run(cfg, params, label: str) -> None:
           f"{len(steps)} steps, {time.perf_counter() - t0:.2f} s; median "
           f"step {sorted(steps)[len(steps) // 2] * 1e3!r} ms; "
           f"outputs {[r.out for r in sorted(done, key=lambda r: r.rid)]}")
+    return require_decode_attn_steps(cfg, label + " DecodeEngine")
 
 
 def phase_serving(cfg, out: dict) -> None:
@@ -1101,7 +1141,8 @@ def phase_serving(cfg, out: dict) -> None:
     out["int8_widths"] = run["int8_widths"]
     out["engine"], out["x"] = run["engine"], x
     out["placements"] = run["placements"]
-    decode_engine_run(cfg, params, cfg.name)
+    out["da_launches"] = run["da_launches"]
+    out["da_launches_engine"] = decode_engine_run(cfg, params, cfg.name)
 
     # one decode_step of a 2-layer fp32 model at the same widths, cuda
     # against cpu
@@ -1331,7 +1372,150 @@ def phase_serve_timing(cfg, out: dict) -> None:
         print(f"[time] full-width decode_step B=16 ({what}): {step_ms!r} "
               f"ms")
         print_profile(f"full-width decode_step ({what})", profile_device(
-            lambda: lm.decode_step(tree, cfg, st, toks, 6)), ())
+            lambda: lm.decode_step(tree, cfg, st, toks, 6)), ("decode_attn",))
+    decode_attn_row(out)
+
+
+# decode_attn at the dense cells' shape: internlm2_1_8b's decode in the
+# fleet (B=16, 16 query heads over 8 KV heads of 128, a ring of 128),
+# past the ring's wrap; one ring per layer of a step, cycled, so each
+# call finds its ring out of the 50 MB L2 as a step's layer does
+DECODE_ATTN_SHAPE = (16, 16, 8, 128, 128)
+DECODE_ATTN_POS = 300
+DECODE_ATTN_RINGS = 24
+# arch, B, ring, position(s) of the other serving paths that launch it:
+# recurrentgemma_2b's HeteroServeEngine (B=16, its ring of 128 inside the
+# 2,048-slot window) before and past the wrap, and DecodeEngine's per-row
+# positions (B=4, ring 64) on both models
+DECODE_ATTN_PARITY = [
+    ("recurrentgemma_2b", 16, 128, 60),
+    ("recurrentgemma_2b", 16, 128, 300),
+    ("internlm2_1_8b", 4, 64, [2, 63, 64, 100]),
+    ("recurrentgemma_2b", 4, 64, [2, 63, 64, 100]),
+]
+
+
+def decode_attn_parity(cfg, B: int, C: int, pos, gen, ring=None) -> dict:
+    """One ``decode_attn`` call against ``decode_attn_plain`` on a copy of
+    the same ring (``ring``, else one drawn): both caches bitwise, the
+    output within ``decode_attn_atol`` (tests/torch_decode_attn_controls
+    .py), and both ``bf16_sums`` controls beyond it. Returns the output's
+    max |diff| and the three ratios to the limit."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_decode_attn_controls import bf16_sums, over_limit
+
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models import attention as attn
+    from repro_torch.models.common import apply_rope
+
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    q, k, v = rand(B, 1, H, hd), rand(B, 1, KV, hd), rand(B, 1, KV, hd)
+    ring = ring or {n: rand(B, C, KV, hd) for n in ("k", "v")}
+    plain = {n: t.clone() for n, t in ring.items()}
+    pos = torch.as_tensor(pos, device="cuda")
+    require(dops.plain_reason(q, ring["k"], ring["v"]) is None,
+            f"decode_attn: {cfg.name} B={B} ring {C} takes the plain path")
+    got = dops.decode_attn(q, k, v, ring["k"], ring["v"], pos,
+                           attn.rope_table(cfg.rope_kind, hd, q.device))
+    want = attn.decode_attn_plain(q, k, v, cfg, plain, pos)
+    torch.cuda.synchronize()
+    what = f"decode_attn {cfg.name} B={B} ring={C} pos={pos.tolist()}"
+    require(torch.equal(ring["k"], plain["k"])
+            and torch.equal(ring["v"], plain["v"]),
+            f"{what}: caches differ from the plain version's")
+    ratio = over_limit(got, want)
+    require(ratio <= 1.0, f"{what}: output {ratio} of its limit off the "
+                          f"plain version's")
+    qr = apply_rope(q, pos.expand(B)[:, None], cfg.rope_kind)
+    ctl = {w: over_limit(bf16_sums(qr, plain["k"], plain["v"], pos, w),
+                         want) for w in ("scores", "values")}
+    require(min(ctl.values()) > 1.0,
+            f"{what}: a bf16-sum control within the limit: {ctl}")
+    res = dict(max_abs_err=max_abs_err(got, want), limit_ratio=ratio,
+               bf16_scores_ratio=ctl["scores"],
+               bf16_values_ratio=ctl["values"],
+               max_abs_out=float(want.float().abs().max()))
+    print(f"[parity] {what}: caches bitwise; {res!r}")
+    return res
+
+
+def decode_attn_row(out: dict) -> None:
+    """``decode_attn`` against its plain version (``decode_attn_plain``)
+    by ``decode_attn_parity`` at the cells' shape and at the serving
+    paths' of DECODE_ATTN_PARITY; at the cells' shape each timed
+    L2-cold by CUDA events and by torch.profiler's device time, beside
+    the byte bound (each valid slot's K and V rows read once, q, k, v
+    read and the output and the slot's rows written once, over 3.35
+    TB/s)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models import attention as attn
+
+    B, H, KV, hd, C = DECODE_ATTN_SHAPE
+    cfg = get_config("internlm2_1_8b")
+    gen = torch.Generator(device="cuda").manual_seed(32)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    rings = [{n: rand(B, C, KV, hd) for n in ("k", "v")}
+             for _ in range(DECODE_ATTN_RINGS)]
+    plain = [{n: t.clone() for n, t in r.items()} for r in rings]
+    plan = dops.decode_plan(B, H, KV, hd, C)
+    cells = decode_attn_parity(cfg, B, C, DECODE_ATTN_POS, gen,
+                               ring=rings[0])
+    for r, p in zip(rings, plain):
+        p["k"].copy_(r["k"])
+        p["v"].copy_(r["v"])
+    others = [decode_attn_parity(
+        dataclasses.replace(get_config(arch), dtype=torch.bfloat16), b, c,
+        pos, gen) for arch, b, c, pos in DECODE_ATTN_PARITY]
+    q, k, v = rand(B, 1, H, hd), rand(B, 1, KV, hd), rand(B, 1, KV, hd)
+    pos = torch.tensor(DECODE_ATTN_POS, device="cuda")
+    freqs = attn.rope_table(cfg.rope_kind, hd, q.device)
+
+    def kernel(r):
+        return dops.decode_attn(q, k, v, r["k"], r["v"], pos, freqs)
+
+    def plain_fn(r):
+        return attn.decode_attn_plain(q, k, v, cfg, r, pos)
+    ms = cold_ms(kernel, rings, reps=10 * DECODE_ATTN_RINGS)
+    plain_ms = cold_ms(plain_fn, plain, reps=2 * DECODE_ATTN_RINGS)
+
+    def device_ms(fn, op):
+        total = op_ms(profile_device(lambda: [fn(r) for r in rings]), op)
+        return None if total is None else total / len(rings)
+    dev_ms = device_ms(kernel, "decode_attn")
+    plain_dev = device_ms(plain_fn, "")
+    n = min(DECODE_ATTN_POS + 1, C)
+    nbytes = 2 * (2 * B * n * KV * hd + 2 * B * H * hd + 4 * B * KV * hd)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[time] decode_attn B={B} H={H} KV={KV} hd={hd} ring={C} "
+          f"pos={DECODE_ATTN_POS} ({plan}): ms={ms!r} "
+          f"device_only_ms={dev_ms!r} plain_ms={plain_ms!r} "
+          f"plain_device_only_ms={plain_dev!r} bound_ms={bound!r} (bytes: "
+          f"{nbytes}) device_bound_share="
+          f"{bound / dev_ms if dev_ms else None!r}; {DECODE_ATTN_RINGS} "
+          f"rings cycled")
+    out["decode_attn_time"] = dict(
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        plain_device_ms=plain_dev, bound_ms=bound, bound_by="bytes",
+        max_abs_err=cells["max_abs_err"], limit_ratio=cells["limit_ratio"],
+        bf16_control_ratios=[cells["bf16_scores_ratio"],
+                             cells["bf16_values_ratio"]],
+        serving_paths=[dict(arch=a, B=b, ring=c, pos=p, **r) for
+                       (a, b, c, p), r in zip(DECODE_ATTN_PARITY, others)],
+        library_ms=None)
+    del rings, plain
+    torch.cuda.empty_cache()
 
 
 # -- the other model families -----------------------------------------------
@@ -1701,8 +1885,9 @@ def phase_serving_recurrentgemma(cfg, params, out: dict) -> None:
     out["pim_launches_rg"] = run["launches"]
     out["qs_launches_rg"] = run["qs_launches"]
     out["qs_err_rg"] = run["qs_err"]
+    out["da_launches_rg"] = run["da_launches"]
     del run["engine"]
-    decode_engine_run(cfg, params, cfg.name)
+    out["da_launches_engine_rg"] = decode_engine_run(cfg, params, cfg.name)
     K = cfg.d_model
     widths = run["int8_widths"] or [cfg.d_ff]
     for N in widths:
@@ -1747,6 +1932,7 @@ def same_stats(a: dict, b: dict, dev_a: str, dev_b: str) -> bool:
 
 def _wrappers() -> dict:
     """Every kernel's wrapper, which keeps its launch count."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.knapsack_dp.ops import dp_stages
     from repro_torch.kernels.lut_pipeline.ops import minplus_combine
     from repro_torch.kernels.mlstm_scan.ops import mlstm_scan, mlstm_scan_bwd
@@ -1759,7 +1945,7 @@ def _wrappers() -> dict:
             "rglru_scan": rglru_scan,
             "rglru_scan_bwd": rglru_scan_bwd, "mlstm_scan": mlstm_scan,
             "slstm_scan": slstm_scan, "mlstm_scan_bwd": mlstm_scan_bwd,
-            "slstm_scan_bwd": slstm_scan_bwd}
+            "slstm_scan_bwd": slstm_scan_bwd, "decode_attn": decode_attn}
 
 
 def kernel_counts() -> dict:
@@ -1845,6 +2031,9 @@ def fleet_decode_run(cfg, params, card: str) -> dict:
                   if ev["name"] == "engine.migration"]
     copies = [ev["args"] for ev in obs.tracer().events()
               if ev["name"] == "engine.compute_copy"]
+    attn_paths = {k: v for k, v in obs.metrics().as_dict()[
+        "counters"].items() if k.startswith("decode_attn.")}
+    attn_paths = {k.split(".", 1)[1]: v for k, v in attn_paths.items()}
     obs.reset()
     require(len(copies) == 1 and copies[0]["shared_by"] == 4,
             f"fleet: compute copies {copies}, one for the 4 engines wanted")
@@ -1869,6 +2058,14 @@ def fleet_decode_run(cfg, params, card: str) -> dict:
             f"{len(migrations)} migrations")
     print(f"[fleet] {len(migrations)} migrations, each of "
           f"{2 * cfg.n_layers} matrices in one quant_split launch")
+    steps = spans["engine.decode"]["count"]
+    require(steps and launches["decode_attn"] == cfg.n_layers * steps
+            and attn_paths == {"fused": cfg.n_layers * steps},
+            f"fleet: {launches['decode_attn']} decode_attn launches, "
+            f"paths {attn_paths}, for {steps} decode steps of "
+            f"{cfg.n_layers} layers")
+    print(f"[fleet] {steps} decode steps, each {cfg.n_layers} decode_attn "
+          f"launches (one a layer); attention paths {attn_paths}")
     print(f"[fleet] launches from bring-up to the end of the run: "
           f"{launches}")
     return dict(fleet=fl, res=res, pc=pc, bring_up_ms=bring_up_ms,
@@ -2135,6 +2332,9 @@ def phase_moe_fleet(card: str, out: dict) -> None:
     require(len(checked) == len(migrations),
             f"moe: {len(checked)} retiers checked, {len(migrations)} "
             f"migrations")
+    require(launches["decode_attn"] == 0,
+            f"moe: {launches['decode_attn']} decode_attn launches (MLA "
+            f"decodes without attention_decode)")
     require(launches["quant_split"] == 3 * len(migrations),
             f"moe: {launches['quant_split']} quant_split launches for "
             f"{len(migrations)} migrations")
@@ -2852,6 +3052,7 @@ def sharded_mesh(card: str, out: dict) -> None:
     import torch.distributed as dist
 
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import lm
     from repro_torch.optim.adamw import OptimizerConfig, make_optimizer
@@ -2879,21 +3080,28 @@ def sharded_mesh(card: str, out: dict) -> None:
         toks = torch.randint(0, cfg.vocab_size, (8, B), device="cuda",
                              generator=torch.Generator("cuda").manual_seed(1))
         err = 0.0
-        with torch.no_grad():
-            for pos in range(8):
-                ref, state = lm.decode_step(params, cfg, state, toks[pos],
-                                            pos)
-                with sh.on_mesh():
-                    got, dstate = lm.decode_step(dparams, cfg, dstate,
-                                                 toks[pos], pos)
-                err = max(err, max_abs_err(got.to_local(), ref))
-            plain_ms = cuda_ms(lambda: lm.decode_step(
-                params, cfg, state, toks[0], 8), reps=10)
+        # the single-device steps on the plain attention path, the one a
+        # DTensor cache takes (a plain CUDA cache would take decode_attn)
+        plain_reason = dops.plain_reason
+        dops.plain_reason = lambda *a: "held to the mesh"
+        try:
+            with torch.no_grad():
+                for pos in range(8):
+                    ref, state = lm.decode_step(params, cfg, state,
+                                                toks[pos], pos)
+                    with sh.on_mesh():
+                        got, dstate = lm.decode_step(dparams, cfg, dstate,
+                                                     toks[pos], pos)
+                    err = max(err, max_abs_err(got.to_local(), ref))
+                plain_ms = cuda_ms(lambda: lm.decode_step(
+                    params, cfg, state, toks[0], 8), reps=10)
 
-            def mesh_step():
-                with sh.on_mesh():
-                    lm.decode_step(dparams, cfg, dstate, toks[0], 8)
-            mesh_ms = cuda_ms(mesh_step, reps=10)
+                def mesh_step():
+                    with sh.on_mesh():
+                        lm.decode_step(dparams, cfg, dstate, toks[0], 8)
+                mesh_ms = cuda_ms(mesh_step, reps=10)
+        finally:
+            dops.plain_reason = plain_reason
         print(f"[sharded] full-width internlm2_1_8b decode_step (B={B}, "
               f"max_len={L}, 8 steps) on the (1, 1) nccl mesh against the "
               f"plain step: max |diff| {err!r}; CUDA events: plain "
@@ -3911,6 +4119,15 @@ def main() -> int:
             out["fleet"]["launches"]["quant_split"],
         "fleet (deepseek_v2_lite, decode)":
             out["moe_fleet"]["launches"]["quant_split"]}
+    by_path["decode_attn"] = {
+        "internlm2_1_8b serving": out["da_launches"],
+        "internlm2_1_8b DecodeEngine": out["da_launches_engine"],
+        "recurrentgemma_2b serving": out["da_launches_rg"],
+        "recurrentgemma_2b DecodeEngine": out["da_launches_engine_rg"],
+        "fleet (internlm2_1_8b, decode)":
+            out["fleet"]["launches"]["decode_attn"],
+        "fleet (deepseek_v2_lite, decode)":
+            out["moe_fleet"]["launches"]["decode_attn"]}
     by_path.update({k: {} for k in SCAN_KERNELS})
     for k in by_path:
         by_path[k]["train"] = out["train_launches"][k]
@@ -3980,6 +4197,13 @@ def main() -> int:
              **dict(out["qs_time"], max_abs_err=max(
                  out["qs_err"], out["qs_err_rg"],
                  out["qs_time"]["max_abs_err"]))),
+        dict(name="decode_attn", route="cuda",
+             source="src/repro_torch/csrc/decode_attn.cu",
+             replaces="none (XLA fuses the JAX package's attention_decode, "
+                      "src/repro/models/attention.py)",
+             launches=sum(by_path["decode_attn"].values()),
+             launches_by_path=by_path["decode_attn"],
+             **out["decode_attn_time"]),
     ] + [dict(name=k, route="cuda", source=f"src/repro_torch/csrc/{src}",
               replaces=rep, launches=sum(by_path[k].values()),
               launches_by_path=by_path[k],

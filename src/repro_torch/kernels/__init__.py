@@ -25,6 +25,12 @@
   slstm_scan    - ``slstm_scan`` / ``slstm_scan_bwd`` (csrc/slstm_scan.cu):
                   xLSTM's sLSTM recurrence as a chunked scan over time,
                   and its backward, the same scan run backwards.
+  decode_attn   - ``decode_attn`` (csrc/decode_attn.cu): one decode
+                  token of grouped-query attention a layer in one launch
+                  (RoPE, the KV-ring write, fp32 scores and softmax, the
+                  value product); ``models.attention.attention_decode``
+                  on plain CUDA bf16 caches. It replaces no TPU kernel
+                  (XLA fuses the JAX package's attention_decode).
   build         - nvcc -> shared library -> ctypes loader.
 
 The scans are ``torch.library`` custom ops (fake versions, a DTensor

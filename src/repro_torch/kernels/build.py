@@ -27,7 +27,7 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("dp_stages", "minplus_combine", "pim_mac", "rglru_scan",
-           "mlstm_scan", "slstm_scan", "quant_split")
+           "mlstm_scan", "slstm_scan", "quant_split", "decode_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

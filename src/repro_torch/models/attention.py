@@ -3,21 +3,27 @@ encoder-decoder cross attention. Pure functions over explicit param dicts,
 in the JAX package's (B, S, H, hd) layout.
 
 The attention product is plain tensor code (no fused attention call), as
-the JAX package has no attention kernel. Local attention keeps a ring
+the JAX package has no attention kernel, but for one-token decode on the
+card: there the hand-written ``decode_attn`` kernel
+(``kernels/decode_attn``) takes RoPE, the cache write and the attention
+in one launch a layer. Local attention keeps a ring
 buffer of ``local_window`` slots in decode; long sequences take the
 chunked paths (flash-style online softmax for full and encoder/cross
 attention, exact window slicing for local attention).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.common import (ModelConfig, apply_rope,
-                                      batch_only, dense_init)
+from repro_torch import obs
+from repro_torch.kernels.decode_attn import ops as decode_attn_ops
+from repro_torch.models.common import (ModelConfig, _rope_freqs,
+                                      apply_rope, batch_only, dense_init)
 
 KVCache = Dict[str, torch.Tensor]   # {"k": (B,S,KV,hd), "v": ...}
 
@@ -41,12 +47,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions):
-    """q, k, v in the (B, S, heads, hd) layout. On a mesh they are
-    sharded by batch only (``batch_only``): the attention products fold
-    batch and heads into one matmul batch dim, which DTensor cannot
-    flatten while the head dim is sharded as well (a KV cache keeps its
-    own sequence sharding)."""
+def _qkv(p, x, cfg: ModelConfig):
+    """q, k, v in the (B, S, heads, hd) layout, before RoPE. On a mesh
+    they are sharded by batch only (``batch_only``): the attention
+    products fold batch and heads into one matmul batch dim, which
+    DTensor cannot flatten while the head dim is sharded as well (a KV
+    cache keeps its own sequence sharding)."""
     B, S, _ = x.shape
     hd = cfg.hd
     q = batch_only(x @ p["wq"].to(x.dtype))
@@ -59,6 +65,12 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     q = q.reshape(B, S, cfg.n_heads, hd)
     k = k.reshape(B, S, cfg.n_kv_heads, hd)
     v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    return q, k, v
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions):
+    """q, k, v of :func:`_qkv`, q and k rotated."""
+    q, k, v = _qkv(p, x, cfg)
     q = apply_rope(q, positions, cfg.rope_kind)
     k = apply_rope(k, positions, cfg.rope_kind)
     return q, k, v
@@ -275,19 +287,64 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
 
     Local attention uses a ring buffer of size ``local_window``; full
     attention appends at ``pos``. Both write slot ``pos % C``. The cache
-    is written IN PLACE (``index_copy_`` / ``index_put_``; a DTensor
-    cache by a ``where`` select copied over it) where the JAX package
-    selects a new cache with ``where``: the values are the same, and the
-    returned cache holds the same tensors as ``cache``.
+    is written IN PLACE where the JAX package selects a new cache with
+    ``where``: the values are the same, and the returned cache holds the
+    same tensors as ``cache``.
+
+    Between the q/k/v products and ``wo``, a plain CUDA bf16 cache of a
+    head width the ``decode_attn`` kernel is built for takes the kernel
+    (RoPE, the cache write, scores, softmax and the value product in one
+    launch, with the RoPE frequencies of :func:`rope_table`); every other
+    cache (the CPU, DTensor, not bf16, other widths) takes
+    :func:`decode_attn_plain` (``decode_attn_ops.plain_reason`` says
+    why). Traced, each call counts ``decode_attn.fused`` or
+    ``decode_attn.plain`` (labelled with the reason).
     """
-    B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device).long()
+    q, k, v = _qkv(p, x, cfg)
+    reason = decode_attn_ops.plain_reason(q, cache["k"], cache["v"])
+    if obs.enabled():
+        if reason is None:
+            obs.counter("decode_attn.fused")
+        else:
+            obs.counter("decode_attn.plain", reason=reason)
+    if reason is None:
+        out = decode_attn_ops.decode_attn(
+            q, k, v, cache["k"], cache["v"], pos,
+            rope_table(cfg.rope_kind, cfg.hd, q.device))
+    else:
+        out = decode_attn_plain(q, k, v, cfg, cache, pos)
+    out = out @ p["wo"].to(x.dtype)
+    return out, {"k": cache["k"], "v": cache["v"]}
+
+
+@functools.lru_cache(maxsize=None)
+def rope_table(kind: str, hd: int, device: torch.device
+               ) -> Optional[torch.Tensor]:
+    """The fp32 frequencies :func:`apply_rope` of ``kind`` builds on
+    every call for heads of width ``hd`` (the same expressions, the same
+    bits), made once on ``device`` and kept for the ``decode_attn``
+    kernel; None for ``"none"``."""
+    if kind == "none":
+        return None
+    return _rope_freqs(hd if kind == "full" else hd // 2, device=device)
+
+
+def decode_attn_plain(q, k, v, cfg: ModelConfig, cache: KVCache,
+                      pos: torch.Tensor) -> torch.Tensor:
+    """The plain version of the ``decode_attn`` kernel: RoPE of q (B,1,H,hd)
+    and k (B,1,KV,hd), k and v written to slot ``pos % C`` of the cache
+    (``index_copy_`` / ``index_put_``; a DTensor cache by a ``where``
+    select copied over it), then :func:`_sdpa` over the valid slots.
+    pos: () or (B,) int64 on the cache's device. Returns (B, 1, H hd)."""
+    B = q.shape[0]
     per_row = pos.ndim == 1
     positions = pos[:, None] if per_row else pos.expand(B, 1)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q = apply_rope(q, positions, cfg.rope_kind)
+    k = apply_rope(k, positions, cfg.rope_kind)
     C = cache["k"].shape[1]
     slot = pos % C
-    idx = torch.arange(C, device=x.device)
+    idx = torch.arange(C, device=q.device)
     if isinstance(cache["k"], DTensor):
         # a sharded cache: no sharding rule writes a slot of a sharded
         # dim in place, so select the new cache (as the JAX package does)
@@ -298,7 +355,7 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
             cache[name].copy_(torch.where(
                 hit, new.to(cache[name].dtype), cache[name]))
     elif per_row:
-        rows = torch.arange(B, device=x.device)
+        rows = torch.arange(B, device=q.device)
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
     else:
@@ -315,9 +372,7 @@ def attention_decode(p, x, cfg: ModelConfig, cache: KVCache,
         valid = idx[None, :] <= pos[:, None] if per_row else idx <= pos
     mask = (valid[:, None, None, None, :] if per_row
             else valid[None, None, None, None, :])
-    out = _sdpa(q, cache["k"], cache["v"], mask, cfg)
-    out = out @ p["wo"].to(x.dtype)
-    return out, {"k": cache["k"], "v": cache["v"]}
+    return _sdpa(q, cache["k"], cache["v"], mask, cfg)
 
 
 def cross_attention_decode(p, x, enc_out, cfg: ModelConfig) -> torch.Tensor:

@@ -1185,3 +1185,155 @@ def test_cuda_migration_is_one_quant_split_per_shape(widen):
                         assert mine is True
                     else:
                         assert torch.equal(mine.cpu(), v), (key, tier, f)
+
+
+# -- decode_attn: the dense decode's attention in one launch a layer ---------
+
+# arch, B, ring, positions of three consecutive steps' first (a list: one
+# position a row): the dense cells' shape, the other variants, and the
+# serving paths' rings (HeteroServeEngine: B=16, ring 128; DecodeEngine:
+# per-row positions, B=4, ring 64)
+DECODE_ATTN_CASES = {
+    "internlm2_before_wrap": ("internlm2_1_8b", 16, 128, 60),
+    "internlm2_after_wrap": ("internlm2_1_8b", 16, 128, 300),
+    "internlm2_per_row": ("internlm2_1_8b", 16, 128,
+                          [0, 1, 5, 126, 127, 128, 129, 255, 256, 300,
+                           1000, 3, 64, 77, 90, 500]),
+    "chatglm3_2d": ("chatglm3_6b", 16, 128, 200),
+    "qwen25_bias": ("qwen25_32b", 8, 128, 90),
+    "seamless_hd64": ("seamless_m4t_medium", 8, 128, 40),
+    "recurrentgemma_below_window": ("recurrentgemma_2b", 4, 2048, 700),
+    "recurrentgemma_past_window": ("recurrentgemma_2b", 4, 2048,
+                                   [5000, 2046, 2047, 9000]),
+    "recurrentgemma_serving": ("recurrentgemma_2b", 16, 128, 300),
+    "recurrentgemma_engine_per_row": ("recurrentgemma_2b", 4, 64,
+                                      [2, 63, 64, 100]),
+    "internlm2_engine_per_row": ("internlm2_1_8b", 4, 64, [2, 63, 64, 100]),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(DECODE_ATTN_CASES))
+def test_cuda_decode_attn_matches_the_plain_path(case):
+    """Three consecutive decode steps of one attention layer at full
+    width (bf16; q, k, v from the layer's products, with qwen2.5's
+    bias), the kernel against ``decode_attn_plain`` on copies of one
+    random ring: both caches bitwise after every step (k rotated as
+    apply_rope rounds it), the output within ``decode_attn_atol`` (one
+    bf16 step of each element and a quarter of the largest |output|),
+    which both of ``bf16_sums``' controls (the scores or the value
+    product summed in bf16) fail, and one launch a step (two where the
+    ring is chunked)."""
+    import dataclasses
+
+    from torch_decode_attn_controls import bf16_sums, over_limit
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import apply_rope
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models import attention as attn
+    dev = _card()
+    arch, B, C, first = DECODE_ATTN_CASES[case]
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    p = {k: w.bfloat16() for k, w in attn.init_attention(gen, cfg).items()}
+    if cfg.qkv_bias:
+        for key in ("bq", "bk", "bv"):
+            p[key] = torch.randn(p[key].shape, generator=gen, device=dev)
+    shape = (B, C, cfg.n_kv_heads, cfg.hd)
+    ring = {n: torch.randn(shape, generator=gen, device=dev).bfloat16()
+            for n in ("k", "v")}
+    ours = {n: t.clone() for n, t in ring.items()}
+    plan = dops.decode_plan(B, cfg.n_heads, cfg.n_kv_heads, cfg.hd, C)
+    for step in range(3):
+        pos = torch.as_tensor(first, device=dev) + step
+        x = torch.randn((B, 1, cfg.d_model), generator=gen,
+                        device=dev).bfloat16()
+        q, k, v = attn._qkv(p, x, cfg)
+        assert dops.plain_reason(q, ours["k"], ours["v"]) is None
+        n0 = dops.decode_attn.launches
+        got = dops.decode_attn(q, k, v, ours["k"], ours["v"], pos,
+                               attn.rope_table(cfg.rope_kind, cfg.hd, dev))
+        torch.cuda.synchronize()
+        assert dops.decode_attn.launches - n0 == (1 if plan.n_chunks == 1
+                                                  else 2)
+        want = attn.decode_attn_plain(q, k, v, cfg, ring, pos)
+        assert torch.equal(ours["v"], ring["v"]), (case, step)
+        assert torch.equal(ours["k"], ring["k"]), (case, step, float(
+            (ours["k"].float() - ring["k"].float()).abs().max()))
+        assert over_limit(got, want) <= 1.0, (case, step,
+                                              over_limit(got, want))
+        qr = apply_rope(q, pos.expand(B)[:, None], cfg.rope_kind)
+        for which in ("scores", "values"):
+            ctl = over_limit(bf16_sums(qr, ring["k"], ring["v"], pos, which),
+                             want)
+            assert ctl > 1.0, (case, step, which, ctl)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_step_launches_decode_attn_once_a_layer():
+    """Full-width internlm2_1_8b cut to 2 layers, a bf16 decode state
+    of 16 rows and a ring of 128: three decode steps launch the kernel
+    once a layer a step, every call counted as fused when traced."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models import lm
+    dev = _card()
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), n_layers=2)
+    params = lm.compute_copy(lm.init_lm(
+        torch.Generator(device=dev).manual_seed(0), cfg), cfg)
+    st = lm.init_decode_state(cfg, 16, 128, device=dev)
+    toks = torch.arange(16, device=dev)
+    n0 = dops.decode_attn.launches
+    obs.reset()
+    obs.enable()
+    try:
+        for pos in range(3):
+            logits, st = lm.decode_step(params, cfg, st, toks, pos)
+            toks = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        m = obs.metrics()
+        fused = m.value("decode_attn.fused")
+        plain = sum(m.value("decode_attn.plain", reason=r) for r in (
+            "dtensor", "device", "dtype", "head_dim"))
+    finally:
+        obs.disable()
+        obs.reset()
+    assert dops.decode_attn.launches - n0 == 3 * cfg.n_layers
+    assert (fused, plain) == (3 * cfg.n_layers, 0)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attn_raises_instead_of_falling_back():
+    from repro_torch.kernels.decode_attn import ops as dops
+    dev = _card()
+    q = torch.zeros((2, 1, 4, 128), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((2, 1, 2, 128), dtype=torch.bfloat16, device=dev)
+    cache = torch.zeros((2, 8, 2, 128), dtype=torch.bfloat16, device=dev)
+    pos = torch.tensor(3, device=dev)
+    with pytest.raises(TypeError, match="bf16"):
+        dops.decode_attn(q.float(), kv, kv, cache, cache.clone(), pos)
+    with pytest.raises(ValueError, match="head widths"):
+        dops.decode_attn(q[..., :96].contiguous(), kv[..., :96].contiguous(),
+                         kv[..., :96].contiguous(),
+                         cache[..., :96].contiguous(),
+                         cache[..., :96].contiguous(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        dops.decode_attn(q, kv, kv, cache.transpose(1, 2).contiguous()
+                         .transpose(1, 2), cache.clone(), pos)
+    with pytest.raises(ValueError, match="int64"):
+        dops.decode_attn(q, kv, kv, cache, cache.clone(), pos.int())
+    off = torch.zeros(cache.numel() + 8, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        dops.decode_attn(q, kv, kv, off[1:1 + cache.numel()].view(
+            cache.shape), cache.clone(), pos)
+    with pytest.raises(ValueError, match="fp32 frequencies"):
+        dops.decode_attn(q, kv, kv, cache, cache.clone(), pos,
+                         torch.zeros(80, device=dev))
+    wide = torch.zeros((2, 1, 64, 128), dtype=torch.bfloat16, device=dev)
+    assert dops.plain_reason(wide, cache, cache) is None
+    with pytest.raises(ValueError, match="at most 16"):
+        dops.decode_attn(wide, kv, kv, cache, cache.clone(), pos)

@@ -23,6 +23,7 @@ offsets, 32-column strips, rows a block) and an emulation of its blocks
 stage every input element once and write every output element once,
 equal to ``split_weight`` of each matrix.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -32,6 +33,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core.multipool import combine_many  # noqa: E402
 from repro_torch.core.multipool import combine_rows_torch  # noqa: E402
+from repro_torch.kernels.decode_attn import ops as daops  # noqa: E402
 from repro_torch.kernels.knapsack_dp import ops as kops  # noqa: E402
 from repro_torch.kernels.knapsack_dp.ref import dp_stages_ref  # noqa: E402
 from repro_torch.kernels.lut_pipeline import ops as lops  # noqa: E402
@@ -44,6 +46,7 @@ from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
 from repro_torch.kernels.slstm_scan import ops as sops  # noqa: E402
 from repro_torch.models.hetero_linear import (  # noqa: E402
     split_weight as hl_split_weight)
+from torch_decode_attn_controls import bf16_sums, over_limit  # noqa: E402
 
 # M, K, N: decode shapes, the library-call shape, prefill, the ragged
 # shapes of the card tests, and K around the 64-row step
@@ -983,3 +986,186 @@ def test_quant_split_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="cuda tensors"):
         qops.quant_split(qops.matrix_table(ws), {"a": 50}, {"a": "int8"})
     assert qops.quant_split.launches == n0
+
+
+# -- decode_attn: the plan and the chunked schedule ---------------------------
+
+def _decode_attn_configs():
+    """The registry's configs whose decode runs ``attention_decode``
+    (attention blocks without MLA), by name."""
+    from repro_torch.configs.registry import all_configs
+    return {a: c for a, c in all_configs().items()
+            if "attn" in c.pattern_for_depth() and not c.kv_lora_rank}
+
+
+@pytest.mark.parametrize("C", [16, 128, 256, 257, 2048, 32768])
+@pytest.mark.parametrize("arch", sorted(_decode_attn_configs()))
+def test_decode_attn_plan_for_the_registry(arch, C):
+    """At B=16: a ring of up to 256 slots whose rows fit one block's
+    shared memory is one block per (row, KV head) and one launch; a
+    longer ring is cut into power-of-two chunks that cover it once and
+    give FILL blocks or the smallest chunk; shared memory fits. Head
+    widths without a build raise (pixtral_12b's 160)."""
+    cfg = _decode_attn_configs()[arch]
+    C = min(C, cfg.local_window) if cfg.attn_kind == "local" else C
+    B, H, KV, hd = 16, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if hd not in daops.HEAD_DIMS:
+        with pytest.raises(ValueError, match="head widths"):
+            daops.decode_plan(B, H, KV, hd, C)
+        return
+    plan = daops.decode_plan(B, H, KV, hd, C)
+    assert plan.group == H // KV and plan.group <= plan.tile * 2
+    assert plan.tile in (2, 4, 8) and (plan.tile >= plan.group
+                                        or plan.tile == 8)
+    assert (plan.n_chunks - 1) * plan.chunk < C <= plan.n_chunks * plan.chunk
+    one = daops._smem(C, hd, plan.group, plan.tile, False)[0]
+    if C <= daops.SHORT_RING and one <= daops.MAX_SMEM:
+        assert plan == daops.DecodePlan(plan.group, plan.tile, C, 1, one, 0)
+    else:
+        assert plan.n_chunks >= 2 and plan.chunk & (plan.chunk - 1) == 0
+        assert (B * KV * plan.n_chunks >= daops.FILL
+                or plan.chunk == daops.MIN_CHUNK)
+        assert (plan.smem, plan.smem_values) == daops._smem(
+            plan.chunk, hd, plan.group, plan.tile, True)
+    assert plan.smem <= daops.MAX_SMEM
+    assert plan.smem_values + daops.STATIC_SMEM <= daops.MAX_SMEM
+
+
+def test_decode_attn_plan_at_the_cells_shape():
+    """internlm2_1_8b's decode in the benchmark's cells (B=16, 16 heads
+    over 8 KV heads of 128, ring 128): 128 blocks of one launch, 70 KB of
+    shared memory each."""
+    plan = daops.decode_plan(16, 16, 8, 128, 128)
+    assert plan == daops.DecodePlan(2, 2, 128, 1, 71680, 0)
+
+
+@pytest.mark.parametrize("args", [
+    (16, 16, 8, 160, 128), (16, 64, 2, 128, 128), (16, 12, 8, 128, 128),
+    (0, 16, 8, 128, 128), (16, 16, 8, 128, 0), (70000, 16, 8, 128, 128)])
+def test_decode_attn_plan_rejects_what_the_kernel_cannot_take(args):
+    with pytest.raises(ValueError):
+        daops.decode_plan(*args)
+
+
+def _decode_attn_schedule(plan, q, ck, cv, pos):
+    """The kernels' arithmetic on rotated q (B, 1, H, hd) and written
+    caches, chunk by chunk as the blocks run it: scores of the valid
+    slots in fp32, then alone a softmax, chunked each chunk's max and sum
+    of exp, the global ones, and the chunks' value sums added in chunk
+    order; probabilities and the output rounded to bf16. Also returns
+    how many blocks read each (row, KV head, slot)."""
+    B, _, H, hd = q.shape
+    C, KV = ck.shape[1], ck.shape[2]
+    g = H // KV
+    out = torch.empty((B, 1, H * hd), dtype=torch.bfloat16)
+    reads = torch.zeros((B, KV, C), dtype=torch.int64)
+    scale = daops.score_scale(hd)
+    for b in range(B):
+        p = int(pos[b]) if pos.ndim else int(pos)
+        n = min(p + 1, C)
+        for kh in range(KV):
+            qg = q[b, 0, kh * g:(kh + 1) * g].float()          # (g, hd)
+            chunks = []
+            for c in range(plan.n_chunks):
+                t0, t1 = c * plan.chunk, min((c + 1) * plan.chunk, n)
+                if t0 >= n:
+                    continue
+                reads[b, kh, t0:t1] += 1
+                s = (qg @ ck[b, t0:t1, kh].float().T) * scale   # (g, t)
+                chunks.append((t0, t1, s))
+            if plan.n_chunks == 1:
+                t0, t1, s = chunks[0]
+                e = torch.exp(s - s.amax(dim=1, keepdim=True))
+                pr = (e / e.sum(dim=1, keepdim=True)).bfloat16().float()
+                acc = pr @ cv[b, t0:t1, kh].float()
+            else:
+                m = torch.stack([s.amax(dim=1) for _, _, s in chunks])
+                ls = torch.stack([torch.exp(s - m[i][:, None]).sum(dim=1)
+                                  for i, (_, _, s) in enumerate(chunks)])
+                M = m.amax(dim=0)
+                L = torch.zeros(g)
+                for i in range(len(chunks)):
+                    L = L + ls[i] * torch.exp(m[i] - M)
+                acc = torch.zeros((g, hd))
+                for t0, t1, s in chunks:
+                    pr = (torch.exp(s - M[:, None]) / L[:, None]).bfloat16()
+                    acc = acc + pr.float() @ cv[b, t0:t1, kh].float()
+            out[b, 0, kh * g * hd:(kh + 1) * g * hd] = acc.reshape(-1)
+    return out, reads
+
+
+# B, H, KV, hd, C, positions: the cells' shape past its wrap, a
+# recurrentgemma-like window cut into 64 chunks, seamless's groups of one
+# head, chatglm's 16 query heads a KV head; rows take the positions in
+# turn (below the ring, at its end, past it), then all take the last
+DECODE_ATTN_SCHEDULES = [
+    (2, 16, 8, 128, 128, [200, 3]),
+    (4, 10, 1, 256, 2048, [5, 2047, 2048, 4097]),
+    (3, 4, 4, 64, 300, [0, 299, 301]),
+    (2, 32, 2, 128, 257, [256, 1000]),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,hd,C,positions", DECODE_ATTN_SCHEDULES)
+def test_decode_attn_schedule_reads_each_valid_slot_once(B, H, KV, hd, C,
+                                                         positions):
+    """The plan's blocks read every valid slot of every (row, KV head)
+    once and no other; their arithmetic, one pass or chunked, comes
+    within ``decode_attn_atol`` (one bf16 step of each element and a
+    quarter of the largest |output|) of the plain version (``decode_attn_plain``, whose cache writes the
+    schedule then reads)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.attention import decode_attn_plain
+    from repro_torch.models.common import apply_rope
+    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), n_heads=H,
+                              n_kv_heads=KV, head_dim=hd,
+                              dtype=torch.bfloat16)
+    assert cfg.hd == hd
+    plan = daops.decode_plan(B, H, KV, hd, C)
+    gen = torch.Generator().manual_seed(C)
+    cache = {n: torch.randn((B, C, KV, hd), generator=gen).bfloat16()
+             for n in ("k", "v")}
+    per_row = torch.tensor([positions[b % len(positions)]
+                            for b in range(B)])
+    for pos in (per_row, torch.tensor(positions[-1])):
+        q = torch.randn((B, 1, H, hd), generator=gen).bfloat16()
+        k = torch.randn((B, 1, KV, hd), generator=gen).bfloat16()
+        v = torch.randn((B, 1, KV, hd), generator=gen).bfloat16()
+        want = decode_attn_plain(q, k, v, cfg, cache, pos)
+        rows = pos.expand(B)
+        qr = apply_rope(q, rows[:, None], cfg.rope_kind)
+        got, reads = _decode_attn_schedule(plan, qr, cache["k"],
+                                           cache["v"], rows)
+        n = torch.clamp(rows + 1, max=C)
+        assert torch.equal(reads, (torch.arange(C)[None, None, :]
+                                   < n[:, None, None]).long()
+                           .expand(B, KV, C))
+        assert over_limit(got, want) <= 1.0, (pos, over_limit(got, want))
+
+
+@pytest.mark.parametrize("which", ["scores", "values"])
+@pytest.mark.parametrize("B,H,KV,hd,C,positions", DECODE_ATTN_SCHEDULES)
+def test_decode_attn_limit_catches_bf16_sums(B, H, KV, hd, C, positions,
+                                             which):
+    """The same attention with the scores' dot products or the value
+    product summed in bf16 (``bf16_sums``) lies beyond 1.5 times
+    ``decode_attn_atol`` of the plain version somewhere, where the
+    schedule's fp32 sums stay within it: the limit tells fp32 sums from
+    bf16 ones."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.attention import decode_attn_plain
+    from repro_torch.models.common import apply_rope
+    cfg = dataclasses.replace(get_smoke_config("internlm2_1_8b"), n_heads=H,
+                              n_kv_heads=KV, head_dim=hd,
+                              dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(C + 1)
+    cache = {n: torch.randn((B, C, KV, hd), generator=gen).bfloat16()
+             for n in ("k", "v")}
+    pos = torch.tensor([positions[b % len(positions)] for b in range(B)])
+    q = torch.randn((B, 1, H, hd), generator=gen).bfloat16()
+    k = torch.randn((B, 1, KV, hd), generator=gen).bfloat16()
+    v = torch.randn((B, 1, KV, hd), generator=gen).bfloat16()
+    want = decode_attn_plain(q, k, v, cfg, cache, pos)
+    qr = apply_rope(q, pos[:, None], cfg.rope_kind)
+    got = bf16_sums(qr, cache["k"], cache["v"], pos, which)
+    assert over_limit(got, want) > 1.5, (which, over_limit(got, want))

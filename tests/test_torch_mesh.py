@@ -11,7 +11,8 @@ tests read them:
   local rows): loss within 1e-6 of the single-device step, every param
   after the update within 1e-5 of its leaf's largest magnitude;
 * ``decode_step`` through DTensor params and a DTensor decode state
-  (sequence-sharded KV cache): logits of three steps within 1e-5;
+  (sequence-sharded KV cache): logits of three steps within 1e-5, every
+  attention layer on the plain path for its DTensor cache;
 * the elastic checkpoint, as the reference's
   ``test_elastic_checkpoint_across_mesh_shapes``: saved from the (2, 2)
   mesh, restored onto a (4, 1) mesh and onto plain tensors, bitwise.
@@ -36,6 +37,7 @@ rank, init, ckdir, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], \
     sys.argv[4]
 dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                         world_size=4)
+from repro_torch import obs
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch.mesh import make_test_mesh
@@ -83,6 +85,8 @@ dstate_dec = sh.distribute(state, sh.decode_state_shardings(state, mesh),
                            mesh)
 res["kv_placements"] = str(leaves(dstate_dec)[0].placements)
 errs = []
+obs.reset()
+obs.enable()
 with torch.no_grad():
     for t in range(3):
         toks = batch["tokens"][:, t]
@@ -91,6 +95,12 @@ with torch.no_grad():
             logits, dstate_dec = lm.decode_step(dp, cfg, dstate_dec, toks, t)
         errs.append(float((logits.full_tensor() - ref_logits).abs().max()))
 res["decode_err"] = max(errs)
+res["decode_attn"] = {
+    "fused": obs.metrics().value("decode_attn.fused"),
+    **{r: obs.metrics().value("decode_attn.plain", reason=r)
+       for r in ("dtensor", "device")}}
+obs.disable()
+obs.reset()
 
 # -- elastic checkpoint: (2, 2) -> (4, 1) and plain -----------------------
 ckpt.save({"params": dparams}, ckdir, 1)
@@ -152,3 +162,12 @@ def test_elastic_checkpoint_across_mesh_shapes(mesh_run):
     assert mesh_run["ckpt_mesh41_equal"]
     assert any("Shard" in p for p in mesh_run["ckpt_mesh41_placements"])
     assert mesh_run["ckpt_plain_equal"]
+
+
+def test_sharded_decode_attention_takes_the_plain_path(mesh_run):
+    """A DTensor cache keeps the plain attention path (reason
+    ``dtensor``), the single-device steps on the CPU too (``device``):
+    one count a layer a step, and no kernel."""
+    n = 3 * 2                            # steps x the smoke model's layers
+    assert mesh_run["decode_attn"] == {"fused": 0, "dtensor": n,
+                                       "device": n}
